@@ -1,0 +1,222 @@
+"""Unified device-resident edit engine: one mixed insert+remove batch per
+call — the port of the reference's ``core/engine.py`` for one device.
+
+  1. REMOVE  — vectorized slot lookup of the removal edges against the
+               live ``(src, dst, valid)`` table, tombstoning, then the
+               mcd removal fixpoint (remove.removal_fixpoint).
+  2. DEDUP   — in-batch duplicate and self-loop masking plus a
+               membership test against the *post-removal* table, so an
+               edge removed and re-inserted in one batch round-trips.
+  3. INSERT  — slot allocation from the free-list
+               (``insert.freelist_alloc``), table writes, and the
+               promotion rounds (insert.promotion_fixpoint), seeded from
+               the removal fixpoint's terminating (hi, dout_same) plus
+               the new edges' O(batch) delta.
+  4. RELABEL — the ``needs_renumber`` gate (order.maybe_renumber).
+
+The reference donates its buffers to the compiled program; the port
+instead updates the slot table IN PLACE: ``apply_batch`` hands
+``batch_program`` views of the active window, and the tombstones and
+slot writes land directly in the full-capacity tensors (no slice and
+splice). The sharded, halo and weighted programs are ROADMAP Queue 1
+items 7 and 8.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import graph_ops as G
+from .insert import freelist_alloc, promotion_fixpoint
+from .order import maybe_renumber
+from .remove import removal_fixpoint
+from .vertex_layout import ReplicatedVertices
+
+_BIG = 1 << 62  # sentinel key: tombstones sort past every real key
+
+
+class BatchStats(NamedTuple):
+    """Per-batch statistics of the unified engine (device scalars)."""
+
+    n_inserted: torch.Tensor     # edges actually added (post dedup)
+    n_removed: torch.Tensor      # live slots tombstoned
+    insert_rounds: torch.Tensor  # promotion rounds executed
+    n_promoted: torch.Tensor     # |V*| of the insertion phase
+    v_plus: torch.Tensor         # |V+| — vertices reached by FORWARD
+    remove_rounds: torch.Tensor  # removal fixpoint rounds executed
+    n_dropped: torch.Tensor      # |V*| of the removal phase
+    renumbered: torch.Tensor     # True if the label renumber fired
+    n_recycled: torch.Tensor     # inserts that reused a tombstoned slot
+    high_water: torch.Tensor     # post-batch slot high-water mark
+    max_frontier: torch.Tensor   # max exchanged-mask count (both phases)
+    n_overflow: torch.Tensor     # sparse exchanges that fell back (0 here)
+
+
+def edge_key(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
+    """Canonical int64 key of a normalized (lo <= hi) undirected edge."""
+    return lo.long() * n + hi.long()
+
+
+def table_lookup(src, dst, valid, n: int):
+    """One sorted int64-key view of a slot table, shared by the removal
+    slot lookup and the insert membership test. Returns
+    ``lookup(qkey) -> (found, slot)``; tombstones carry a sentinel key
+    that sorts past every real key, so they are never found."""
+    capacity = src.shape[0]
+    tkey = torch.where(valid, edge_key(torch.minimum(src, dst),
+                                       torch.maximum(src, dst), n),
+                       torch.full_like(src, _BIG, dtype=torch.int64))
+    torder = torch.argsort(tkey, stable=True)
+    tsorted = tkey[torder]
+
+    def lookup(qkey):
+        pos = torch.searchsorted(tsorted, qkey).clamp(max=capacity - 1)
+        return tsorted[pos] == qkey, torder[pos]
+
+    return lookup
+
+
+def batch_dedup(ins_u, ins_v, ins_ok, n: int):
+    """Normalize orientation, drop self-loops and in-batch duplicates
+    (the stable sort keeps the first lane of each run of equal keys).
+    Returns ``(ilo, ihi, iok, key)``."""
+    ilo = torch.minimum(ins_u, ins_v)
+    ihi = torch.maximum(ins_u, ins_v)
+    iok = ins_ok & (ilo != ihi)
+    key = edge_key(ilo, ihi, n)
+    ikey = torch.where(iok, key, torch.full_like(key, _BIG))
+    iperm = torch.argsort(ikey, stable=True)
+    isorted = ikey[iperm]
+    first = torch.ones_like(iok)
+    first[1:] = isorted[1:] != isorted[:-1]
+    keep = torch.empty_like(iok)
+    keep[iperm] = first
+    return ilo, ihi, iok & keep, key
+
+
+def batch_program(src, dst, valid, core, label, n_edges,
+                  ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
+                  n: int, n_levels: int, axis: Optional[str] = None,
+                  layout: ReplicatedVertices | None = None,
+                  freelist: str = "interleaved",
+                  kernel_backend: str = "torch",
+                  w: Optional[torch.Tensor] = None,
+                  ins_w: Optional[torch.Tensor] = None):
+    """The mixed-batch program body over one slot table.
+
+    ``src``/``dst``/``valid`` are updated IN PLACE (and returned); pass
+    views of the active window to update a larger table. Returns
+    ``(src, dst, valid, core, label, n_edges, stats)``.
+    """
+    if axis is not None or freelist != "interleaved":
+        raise NotImplementedError(
+            "the sharded batch program is ROADMAP Queue 1 item 8"
+        )
+    if w is not None or ins_w is not None:
+        raise NotImplementedError(
+            "the weighted batch program is ROADMAP Queue 1 item 7"
+        )
+    if layout is None:
+        layout = ReplicatedVertices(n, device=core.device)
+    G._check_layout(layout)
+    capacity = src.shape[0]
+    dev = src.device
+
+    # pre-batch high-water mark: inserts landing below it reclaimed a
+    # tombstone (the n_recycled statistic)
+    hwm0 = G.slot_high_water(valid)
+    lookup = table_lookup(src, dst, valid, n)
+
+    # ---- 1. removals: vectorized slot lookup + tombstoning -------------
+    rlo = torch.minimum(rm_u, rm_v)
+    rhi = torch.maximum(rm_u, rm_v)
+    rm_ok = rm_ok & (rlo != rhi)
+    rfound, rslot = lookup(edge_key(rlo, rhi, n))
+    found = rfound & rm_ok
+    # scatter-max: not-found rows are no-ops even where they collide
+    rm_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    rm_mask = rm_mask.scatter_reduce_(0, rslot, found.to(torch.int32),
+                                      "amax").bool()
+    valid &= ~rm_mask
+    n_removed = rm_mask.sum(dtype=torch.int32)
+
+    core_pre_rm = core
+    core, label, rm_rounds, hi, dout_same, rm_fmax = removal_fixpoint(
+        src, dst, valid, core, label, n, n_levels, layout=layout,
+        kernel_backend=kernel_backend,
+    )
+    n_dropped = (core != core_pre_rm).sum(dtype=torch.int32)
+
+    # ---- 2. insert dedup + membership against the post-removal table --
+    ilo, ihi, iok, key = batch_dedup(ins_u, ins_v, ins_ok, n)
+    ifound, islot_hit = lookup(key)
+    iok = iok & ~(ifound & ~rm_mask[islot_hit])
+
+    # ---- 3. slot allocation from the free-list + table writes ----------
+    lpos, iok = freelist_alloc(valid, iok)
+    # a kept lane always has a slot inside the table (lpos < capacity)
+    slots = lpos[iok]
+    src[slots] = ilo[iok].to(src.dtype)
+    dst[slots] = ihi[iok].to(dst.dtype)
+    valid[slots] = True
+    n_inserted = iok.sum(dtype=torch.int32)
+    n_recycled = (lpos < hwm0).sum(dtype=torch.int32)
+    # n_edges is the LIVE edge count
+    n_edges = n_edges - n_removed + n_inserted
+
+    # O(batch) delta keeps the shared (hi, dout_same) exact for the table
+    # with the new edges
+    core_pre_ins = core
+    hi_u, hi_v, do_u, do_v = G.hi_dout_indicators(core, label, ilo, ihi, iok)
+    hi = layout.add_at(hi, ilo, hi_u.to(torch.int32))
+    hi = layout.add_at(hi, ihi, hi_v.to(torch.int32))
+    dout_same = layout.add_at(dout_same, ilo, do_u.to(torch.int32))
+    dout_same = layout.add_at(dout_same, ihi, do_v.to(torch.int32))
+
+    core, label, ins_rounds, v_plus, ins_fmax = promotion_fixpoint(
+        src, dst, valid, core, label, ilo, ihi, iok, hi, dout_same,
+        n, n_levels, layout=layout, kernel_backend=kernel_backend,
+    )
+    n_promoted = (core != core_pre_ins).sum(dtype=torch.int32)
+
+    # ---- 4. renumber gate ----------------------------------------------
+    label, renumbered = maybe_renumber(core, label)
+
+    stats = BatchStats(
+        n_inserted=n_inserted,
+        n_removed=n_removed,
+        insert_rounds=ins_rounds,
+        n_promoted=n_promoted,
+        v_plus=v_plus.sum(dtype=torch.int32),
+        remove_rounds=rm_rounds,
+        n_dropped=n_dropped,
+        renumbered=renumbered,
+        n_recycled=n_recycled,
+        high_water=G.slot_high_water(valid),
+        max_frontier=torch.maximum(rm_fmax, ins_fmax),
+        n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return src, dst, valid, core, label, n_edges, stats
+
+
+def apply_batch(src, dst, valid, core, label, n_edges,
+                ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
+                n: int, n_levels: int, active_cap: int,
+                kernel_backend: str = "torch"):
+    """Apply one mixed batch (removals first, then insertions) and
+    restore core numbers + k-order labels.
+
+    ``ins_*``/``rm_*`` are padded edge lists masked by their ``_ok``
+    flags. Every edge pass runs over the first ``active_cap`` slots (the
+    host's pow2 bound on the slot high-water mark incl. this batch); the
+    tail past it stays all-invalid. The slot table is updated in place.
+    Returns ``(src, dst, valid, core, label, n_edges, stats)``.
+    """
+    _, _, _, core, label, n_edges, stats = batch_program(
+        src[:active_cap], dst[:active_cap], valid[:active_cap],
+        core, label, n_edges,
+        ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
+        n, n_levels, kernel_backend=kernel_backend,
+    )
+    return src, dst, valid, core, label, n_edges, stats

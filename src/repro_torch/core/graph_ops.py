@@ -1,0 +1,160 @@
+"""Vectorized per-vertex neighborhood statistics over COO edge slots.
+
+The port of the reference's ``core/graph_ops.py`` for one device
+(``layout=None`` or a ``ReplicatedVertices`` without a mesh axis, where
+completing a statistic is the identity). Each undirected edge is stored
+once; each statistic adds its per-edge indicators to both endpoints.
+
+This module is the KERNEL DISPATCH POINT: the round statistics accept
+``backend="torch" | "cuda"``, the counterparts of the reference's
+``"lax" | "pallas"``. The torch path gathers endpoint state and scatters
+with an ``index_add_`` pair (``_seg2``), the port of the lax path. The
+cuda path runs the hand-written kernels of ``kernels/coremaint.py`` and
+produces the same integer sums bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels import coremaint
+from .vertex_layout import ReplicatedVertices
+
+KERNEL_BACKENDS = ("torch", "cuda")
+
+
+def _check_layout(layout) -> None:
+    if not completes_locally(layout):
+        raise NotImplementedError(
+            "statistics over a mesh layout are ROADMAP Queue 1 item 8 "
+            "(multi-GPU engines)"
+        )
+
+
+def completes_locally(layout: Optional[ReplicatedVertices]) -> bool:
+    """True when the layout's completion is the identity (one device):
+    partial statistics ARE the global statistics, so the fused kernels
+    may commit per-vertex decisions after their edge pass."""
+    return layout is None or (
+        isinstance(layout, ReplicatedVertices) and layout.axis is None
+    )
+
+
+def slot_high_water(valid: torch.Tensor, axis: Optional[str] = None):
+    """1 + the largest valid slot index (0 when empty), int32 scalar."""
+    if axis is not None:
+        raise NotImplementedError(
+            "per-shard high-water marks are ROADMAP Queue 1 item 8"
+        )
+    idx = torch.arange(1, valid.shape[0] + 1, dtype=torch.int32,
+                       device=valid.device)
+    return torch.where(valid, idx, torch.zeros_like(idx)).max()
+
+
+def _seg2(data_to_src: torch.Tensor, data_to_dst: torch.Tensor,
+          src: torch.Tensor, dst: torch.Tensor, n: int,
+          layout=None) -> torch.Tensor:
+    """Two-direction segment sum: one ``index_add_`` per direction."""
+    _check_layout(layout)
+    out = torch.zeros((n,) + data_to_src.shape[1:], dtype=torch.int32,
+                      device=src.device)
+    out.index_add_(0, src, data_to_src.to(torch.int32))
+    out.index_add_(0, dst, data_to_dst.to(torch.int32))
+    return out
+
+
+def degree(src, dst, valid, n: int, layout=None) -> torch.Tensor:
+    one = valid.to(torch.int32)
+    return _seg2(one, one, src, dst, n, layout)
+
+
+def count_ge(src, dst, valid, vals, n: int, layout=None,
+             backend: str = "torch") -> torch.Tensor:
+    """mcd (Def 3.8): per-vertex count of neighbors w with
+    vals[w] >= vals[v]."""
+    if backend == "cuda":
+        _check_layout(layout)
+        out = coremaint.coo_stat(src, dst, valid, vals, None, n, stat="mcd")
+        return out[:, 0]
+    cs, cd = vals[src], vals[dst]
+    return _seg2(valid & (cd >= cs), valid & (cs >= cd), src, dst, n,
+                 layout)
+
+
+def hi_dout_indicators(core, label, u, v, ok):
+    """Per-edge indicator columns of the promotion statistics: for each
+    (u, v) edge masked by ``ok``, whether it contributes to hi(u),
+    hi(v), dout_same(u), dout_same(v). Shared by the full passes and by
+    the unified engine's O(batch) delta update."""
+    cu, cv = core[u], core[v]
+    same = ok & (cu == cv)
+    hi_to_u = ok & (cv > cu)
+    hi_to_v = ok & (cu > cv)
+    dout_to_u = same & (label[v] > label[u])
+    dout_to_v = same & (label[u] > label[v])
+    return hi_to_u, hi_to_v, dout_to_u, dout_to_v
+
+
+def hi_and_dout_same(src, dst, valid, core, label, n: int, layout=None,
+                     backend: str = "torch"):
+    """Packed (hi, dout_same) for the insertion round: one [n, 2]
+    scatter carries the higher-core neighbor count and the same-level
+    k-order successor count."""
+    if backend == "cuda":
+        _check_layout(layout)
+        out = coremaint.coo_stat(src, dst, valid, core, label, n,
+                                 stat="hi_dout")
+        return out[:, 0], out[:, 1]
+    hi_s, hi_d, do_s, do_d = hi_dout_indicators(core, label, src, dst,
+                                                valid)
+    out = _seg2(torch.stack([hi_s, do_s], dim=-1),
+                torch.stack([hi_d, do_d], dim=-1), src, dst, n, layout)
+    return out[:, 0], out[:, 1]
+
+
+def mcd_hi_dout(src, dst, valid, core, label, n: int, layout=None,
+                backend: str = "torch"):
+    """Packed (mcd, hi, dout_same) — the removal fixpoint's support count
+    together with both promotion-seeding statistics, in one [n, 3]
+    scatter."""
+    if backend == "cuda":
+        _check_layout(layout)
+        out = coremaint.coo_stat(src, dst, valid, core, label, n,
+                                 stat="mcd_hi_dout")
+        return out[:, 0], out[:, 1], out[:, 2]
+    hi_s, hi_d, do_s, do_d = hi_dout_indicators(core, label, src, dst,
+                                                valid)
+    cs, cd = core[src], core[dst]
+    out = _seg2(torch.stack([valid & (cd >= cs), hi_s, do_s], dim=-1),
+                torch.stack([valid & (cs >= cd), hi_d, do_d], dim=-1),
+                src, dst, n, layout)
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+def count_same_level_in(src, dst, valid, core, mask, n: int, layout=None,
+                        backend: str = "torch") -> torch.Tensor:
+    """Per-vertex count of same-level neighbors inside ``mask``."""
+    if backend == "cuda":
+        _check_layout(layout)
+        out = coremaint.coo_stat(src, dst, valid, core, None, n,
+                                 stat="same_in", aux=mask)
+        return out[:, 0]
+    same = valid & (core[src] == core[dst])
+    return _seg2(same & mask[dst], same & mask[src], src, dst, n, layout)
+
+
+def din_and_expand(src, dst, valid, core, label, rp, n: int, layout=None,
+                   backend: str = "torch"):
+    """FORWARD-wave statistics in one scatter: din counts reached-and-
+    passing k-order predecessors, and frontier growth is ``din > 0``."""
+    if backend == "cuda":
+        _check_layout(layout)
+        din = coremaint.coo_stat(src, dst, valid, core, label, n,
+                                 stat="din", aux=rp)[:, 0]
+        return din, din > 0
+    same = valid & (core[src] == core[dst])
+    fwd_to_dst = same & (label[src] < label[dst]) & rp[src]
+    fwd_to_src = same & (label[dst] < label[src]) & rp[dst]
+    din = _seg2(fwd_to_src, fwd_to_dst, src, dst, n, layout)
+    return din, din > 0

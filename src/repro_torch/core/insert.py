@@ -1,0 +1,220 @@
+"""Batch-parallel edge insertion maintenance (paper Algorithm 5) — the
+port of the reference's ``core/insert.py`` for one device.
+
+Round structure (all levels of all inserted edges processed together):
+
+  1. SEED    — k-order roots of the pending edges, last round's promoted
+               vertices, and every certificate violator.
+  2. FORWARD — masked wave expansion along same-level k-order-increasing
+               edges, gated by ``hi + dout_same + din_reached > core``.
+  3. EVICT   — the candidate fixpoint on the reached set: evict v while
+               ``hi(v) + |same-level candidate nbrs| <= core(v)``.
+  4. COMMIT  — survivors' core += 1, placed at the head of O_{K+1} in
+               old label order; evicted vertices go to the tail of O_K
+               in (eviction round, old label) order.
+
+Rounds repeat while the k-order certificate is violated somewhere. Each
+of the reference's ``lax.while_loop``s is a Python loop here with one
+host sync per iteration (its condition); round counts match exactly.
+The host engine's ``write_edge_slots`` / ``insert_batch`` are in ROADMAP
+Queue 1, items 1-6, the rest.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from . import graph_ops as G
+from ..kernels import coremaint
+from .order import place_block
+from .vertex_layout import ReplicatedVertices
+
+
+class InsertStats(NamedTuple):
+    rounds: torch.Tensor        # outer promotion rounds
+    n_promoted: torch.Tensor    # |V*| over the whole batch
+    v_plus: torch.Tensor        # |V+| — vertices ever reached by FORWARD
+    max_frontier: torch.Tensor  # max exchanged-mask count over all rounds
+
+
+def freelist_alloc(valid: torch.Tensor, iok: torch.Tensor,
+                   axis: Optional[str] = None,
+                   hierarchical: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recycling slot allocator: every dead slot IS the free-list.
+
+    Dead slots (``~valid``) are ranked in ascending slot order and the
+    batch's kept inserts (``iok``, ranked by cumsum) take the
+    lowest-ranked free slots one to one.
+
+    Returns ``(lpos, iok)``: ``lpos[b]`` is the slot of insert lane
+    ``b`` (``== capacity`` when the lane is masked), and ``iok``
+    narrowed by the free-exhaustion guard. Sync-free: the reference's
+    ``mode="drop"`` scatter becomes a scatter into one spare row.
+    """
+    if axis is not None or hierarchical:
+        raise NotImplementedError(
+            "the sharded free-list ranking is ROADMAP Queue 1 item 8"
+        )
+    capacity = valid.shape[0]
+    b = iok.shape[0]
+    dev = valid.device
+    dead = ~valid
+    total_free = dead.sum(dtype=torch.int32)
+    drank = torch.cumsum(dead, 0, dtype=torch.int32) - 1
+    rank = torch.cumsum(iok, 0, dtype=torch.int32) - 1
+    iok = iok & (rank < total_free)
+    # ranks past the batch can never be targets (rank < b always): their
+    # dead slots park on the spare row b
+    spos = torch.where(dead & (drank < b), drank, torch.full_like(drank, b))
+    slot_of_rank = torch.full((b + 1,), capacity, dtype=torch.int32,
+                              device=dev)
+    slot_of_rank.scatter_(
+        0, spos.long(), torch.arange(capacity, dtype=torch.int32, device=dev)
+    )
+    lpos = torch.where(iok, slot_of_rank[rank.clamp(min=0)],
+                       torch.full_like(rank, capacity))
+    return lpos, iok
+
+
+def promotion_fixpoint(
+    src, dst, valid, core, label, new_src, new_dst, new_ok, hi, dout_same,
+    n: int, n_levels: int,
+    layout: ReplicatedVertices | None = None,
+    kernel_backend: str = "torch",
+) -> Tuple[torch.Tensor, ...]:
+    """Promotion rounds for pending edges already written into the table.
+
+    ``hi``/``dout_same`` must describe the CURRENT (core, label, valid)
+    state including the pending edges; each round recomputes them after
+    its commit. Returns ``(core, label, rounds, v_plus_mask,
+    max_frontier)``.
+
+    ``kernel_backend="cuda"`` runs every wave/evict statistic through
+    ``coo_stat`` and the terminating statistics with the violator check
+    through ``fused_promotion_stats``.
+    """
+    if layout is None:
+        layout = ReplicatedVertices(n, device=core.device)
+    G._check_layout(layout)
+    fuse_decision = kernel_backend == "cuda"
+    dev = core.device
+    promoted_prev = torch.zeros(n, dtype=torch.bool, device=dev)
+    v_plus = torch.zeros(n, dtype=torch.bool, device=dev)
+    fmax = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = 0
+    while True:
+        # SEED: roots of pending edges (order-min endpoint at current
+        # state)
+        cs, cd = core[new_src], core[new_dst]
+        e_src_lt = (cs < cd) | ((cs == cd) & (label[new_src] < label[new_dst]))
+        root = torch.where(e_src_lt, new_src, new_dst)
+        seed = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, root, new_ok.to(torch.int32)) > 0
+        viol = layout.gather_mask((hi + dout_same) > layout.own(core))
+        fmax = torch.maximum(fmax, layout.frontier_peak(viol))
+        seed = seed | viol | promoted_prev
+
+        reach, passing, wave_fmax = _forward_reach(
+            src, dst, valid, core, label, seed, hi, dout_same, n, layout,
+            kernel_backend=kernel_backend,
+        )
+        cand0 = reach & passing
+        cand, evict_round, ev_fmax = _evict_fixpoint(
+            src, dst, valid, core, cand0, hi, n, layout,
+            kernel_backend=kernel_backend,
+        )
+        fmax = torch.maximum(fmax, torch.maximum(wave_fmax, ev_fmax))
+
+        new_core = core + cand.to(torch.int32)
+        # promoted -> head of O_{K+1} in old-label order
+        label = place_block(new_core, label, cand, at_head=True,
+                            n_levels=n_levels)
+        # Backward-evicted -> tail of O_K in (eviction round, old label)
+        # order; restores the dout <= core certificate
+        evicted = cand0 & ~cand
+        label = place_block(new_core, label, evicted, at_head=False,
+                            n_levels=n_levels, round_key=evict_round)
+        # (hi, dout_same) for the NEXT round; continue only while the
+        # k-order certificate is violated somewhere
+        if fuse_decision:
+            hi, dout_same, viol_next = coremaint.fused_promotion_stats(
+                src, dst, valid, new_core, label, n
+            )
+            changed = viol_next.any()
+        else:
+            hi, dout_same = G.hi_and_dout_same(
+                src, dst, valid, new_core, label, n, layout,
+                backend=kernel_backend,
+            )
+            changed = layout.any_owned(
+                (hi + dout_same) > layout.own(new_core)
+            )
+        core = new_core
+        promoted_prev = cand
+        v_plus = v_plus | reach
+        rounds += 1
+        if not bool(changed):
+            break
+    rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
+    return core, label, rounds, v_plus, fmax
+
+
+def _forward_reach(src, dst, valid, core, label, seed, hi, dout_same,
+                   n: int, layout: ReplicatedVertices | None = None,
+                   kernel_backend: str = "torch"):
+    """Monotone fixpoint of gated forward expansion. Returns ``(reach,
+    passing, max_frontier)``; ``passing`` uses the optimistic test with
+    din counted over reached-and-passing predecessors only."""
+    if layout is None:
+        layout = ReplicatedVertices(n, device=core.device)
+    core_own = layout.own(core)
+    reach = seed
+    passing = layout.gather_mask((hi + dout_same) > core_own)
+    fmax = layout.frontier_peak(passing)
+    while True:
+        rp = reach & passing
+        din, grow = G.din_and_expand(src, dst, valid, core, label, rp, n,
+                                     layout, backend=kernel_backend)
+        new_passing = layout.gather_mask((hi + dout_same + din) > core_own)
+        grow_full = layout.gather_mask(grow)
+        fmax = torch.maximum(fmax, torch.maximum(
+            layout.frontier_peak(new_passing),
+            layout.frontier_peak(grow_full),
+        ))
+        new_reach = reach | grow_full
+        changed = (new_reach != reach).any() | (new_passing != passing).any()
+        reach, passing = new_reach, new_passing
+        if not bool(changed):
+            return reach, passing, fmax
+
+
+def _evict_fixpoint(src, dst, valid, core, cand, hi, n: int,
+                    layout: ReplicatedVertices | None = None,
+                    kernel_backend: str = "torch"):
+    """Greatest fixpoint of the candidate support test. Returns
+    (surviving candidates, eviction round per vertex, max_frontier);
+    the round numbers order the Backward tail placement (never-evicted
+    keep 0)."""
+    if layout is None:
+        layout = ReplicatedVertices(n, device=core.device)
+    core_own = layout.own(core)
+    evict_round = torch.zeros(n, dtype=torch.int32, device=core.device)
+    fmax = torch.zeros((), dtype=torch.int32, device=core.device)
+    rnd = 1
+    while True:
+        support = hi + G.count_same_level_in(src, dst, valid, core, cand, n,
+                                             layout, backend=kernel_backend)
+        keep = layout.gather_mask(support > core_own)
+        fmax = torch.maximum(fmax, layout.frontier_peak(keep))
+        new_cand = cand & keep
+        newly_evicted = cand & ~new_cand
+        evict_round = torch.where(newly_evicted,
+                                  torch.full_like(evict_round, rnd),
+                                  evict_round)
+        rnd += 1
+        changed = (new_cand != cand).any()
+        cand = new_cand
+        if not bool(changed):
+            return cand, evict_round, fmax

@@ -1,0 +1,87 @@
+"""Batch-parallel edge removal maintenance (paper Algorithm 6) — the port
+of the reference's ``core/remove.py`` for one device.
+
+The mcd cascade is a decrease-only fixpoint over dense per-vertex state:
+
+    round:  mcd[v] = |{u in N(v) : core[u] >= core[v]}|
+            drop   = mcd < core
+            core  -= drop
+
+Every round handles all affected levels of all removed edges at once;
+this round's droppers are placed at the tail of their new level.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from . import graph_ops as G
+from ..kernels import coremaint
+from .order import place_block
+from .vertex_layout import ReplicatedVertices
+
+
+class RemoveStats(NamedTuple):
+    rounds: torch.Tensor        # number of fixpoint rounds executed
+    n_dropped: torch.Tensor     # |V*| — vertices whose core decreased
+    max_frontier: torch.Tensor  # max drop-mask count over all rounds
+
+
+def removal_fixpoint(
+    src, dst, valid, core, label, n: int, n_levels: int,
+    share_stats: bool = True,
+    layout: ReplicatedVertices | None = None,
+    kernel_backend: str = "torch",
+) -> Tuple[torch.Tensor, ...]:
+    """Run the decrease-only mcd fixpoint on an already-tombstoned table.
+
+    Returns ``(core, label, rounds, hi, dout_same, max_frontier)``. With
+    ``share_stats`` the (hi, dout_same) statistics come from the same
+    packed scatter as the terminating mcd check, so they describe the
+    FINAL state exactly — the unified engine seeds its promotion phase
+    from them. ``share_stats=False`` scatters just the 1-column mcd and
+    returns zero hi/dout_same.
+
+    ``kernel_backend="cuda"`` runs each round as ``fused_removal_round``
+    (stats, drop decision and core commit). The reference's
+    ``lax.while_loop`` is a Python loop here, one host sync per round;
+    ``rounds`` counts body executions, including the last one, which
+    drops nothing.
+    """
+    if layout is None:
+        layout = ReplicatedVertices(n, device=core.device)
+    G._check_layout(layout)
+    fuse_decision = kernel_backend == "cuda"
+    hi = dout_same = layout.zeros()
+    fmax = torch.zeros((), dtype=torch.int32, device=core.device)
+    rounds = 0
+    while True:
+        if fuse_decision:
+            _, k_hi, k_dout, new_core, drop = coremaint.fused_removal_round(
+                src, dst, valid, core, label, n
+            )
+            if share_stats:
+                hi, dout_same = k_hi, k_dout
+        else:
+            if share_stats:
+                mcd, hi, dout_same = G.mcd_hi_dout(
+                    src, dst, valid, core, label, n, layout,
+                    backend=kernel_backend,
+                )
+            else:
+                mcd = G.count_ge(src, dst, valid, core, n, layout,
+                                 backend=kernel_backend)
+            drop = (mcd < core) & (core > 0)
+            new_core = core - drop.to(torch.int32)
+        fmax = torch.maximum(fmax, layout.frontier_peak(drop))
+        rounds += 1
+        if not bool(layout.any_owned(drop)):
+            # the last round drops nothing: core and label stay as they are
+            break
+        # place this round's droppers at the tail of their new level
+        label = place_block(new_core, label, drop, at_head=False,
+                            n_levels=n_levels)
+        core = new_core
+    rounds = torch.tensor(rounds, dtype=torch.int32, device=core.device)
+    return core, label, rounds, hi, dout_same, fmax
