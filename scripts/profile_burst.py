@@ -5,7 +5,13 @@ the size ``chip_smoke.py`` drives it (``rmat(21, 16_000_000, seed=0)``,
 removed and then re-inserted (which restores the edge set and the
 cores).
 
-    python3 scripts/profile_burst.py      # needs one CUDA card and nvcc
+    python3 scripts/profile_burst.py              # needs one CUDA card and nvcc
+    python3 scripts/profile_burst.py --weighted   # the weighted engine
+
+``--weighted`` builds weighted maintainers instead
+(``from_graph(weighted=True)``, weights drawn uniformly from 1-5 with
+seed 1, as ``chip_smoke.py`` phase 5 does) and re-inserts the burst with
+its own weights.
 
 1. The burst pair on two maintainers built from one state, one with the
    hand-written kernels (``kernel_backend="cuda"``) and one with the
@@ -20,6 +26,7 @@ non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -32,9 +39,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 SCALE = 21
 EDGES = 16_000_000
 BURST = 100_000
+MAX_WEIGHT = 5
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--weighted", action="store_true",
+                    help="profile the weighted engine (weights 1-5)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_burst: no CUDA device", file=sys.stderr)
@@ -56,9 +68,15 @@ def main() -> int:
     K.build()
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGES, seed=0)
-    kern = CoreMaintainer.from_graph(g, init="jax-peel", device="cuda")
+    if args.weighted:
+        w0 = np.random.default_rng(1).integers(1, MAX_WEIGHT + 1, g.m)
+        kern = CoreMaintainer.from_graph(g, device="cuda", weighted=True,
+                                         weights=w0)
+    else:
+        kern = CoreMaintainer.from_graph(g, init="jax-peel", device="cuda")
     plain = CoreMaintainer.from_state(kern.state(), device="cuda",
-                                      kernel_backend="torch")
+                                      kernel_backend="torch",
+                                      weighted=args.weighted)
     torch.cuda.synchronize()
     print(f"set-up: n={g.n} m={g.m} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
@@ -68,14 +86,16 @@ def main() -> int:
         live.numel(), size=BURST, replace=False)).to(live.device)
     slots = live[pick]
     sample = torch.stack([kern.src[slots], kern.dst[slots]], 1).cpu().numpy()
+    weights = kern.w[slots].cpu().numpy() if args.weighted else None
     core0 = kern.core.clone()
 
     def burst_pair(m):
         times = []
-        for ins, rm in ((None, sample), (sample, None)):
+        for ins, iw, rm in ((None, None, sample), (sample, weights, None)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            m.apply_batch(insert_edges=ins, remove_edges=rm)
+            m.apply_batch(insert_edges=ins, remove_edges=rm,
+                          insert_weights=iw)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         if not torch.equal(m.core, core0):
@@ -84,14 +104,18 @@ def main() -> int:
 
     for m in (plain, kern, kern, plain):
         rm_s, ins_s = burst_pair(m)
-        print(f"burst pair kernel_backend={m.kernel_backend}: "
+        print(f"burst pair kernel_backend={m.kernel_backend}"
+              f"{' weighted' if args.weighted else ''}: "
               f"remove_s={rm_s:.4f} insert_s={ins_s:.4f}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        K.reset_launches()
         burst_pair(kern)
         wall = time.perf_counter() - t0
+    print(f"profile launches: "
+          f"{ {k: v for k, v in K.LAUNCHES.items() if v} }")
     # device kernels carry the device time; host-side ops (aten::*) show
     # the device time of the kernels they launched, so they are listed
     # apart and never summed with the kernels

@@ -1,5 +1,6 @@
 """Parallel order-based core maintenance on PyTorch — the single-device
-``engine="unified"`` slice of the reference's ``repro.core``.
+``engine="unified"`` slice of the reference's ``repro.core``, unweighted
+and weighted.
 
 Layers:
 * ``oracle``        — sequential Simplified-Order / Traversal / BZ (numpy).
@@ -10,6 +11,7 @@ Layers:
 * ``remove``        — batch-parallel mcd-cascade removal maintenance.
 * ``engine``        — the unified mixed-batch program.
 * ``vertex_layout`` — the single-device vertex layout.
+* ``weighted``      — weighted-coreness oracle and reference harness.
 * ``api``           — CoreMaintainer public interface.
 """
 from .oracle import (  # noqa: F401

@@ -21,10 +21,16 @@ raises when no CUDA device is present; tests pass ``device="cpu"``.
 reference's ``"lax"`` and ``"pallas"``) and defaults to ``"cuda"`` on a
 CUDA device, ``"torch"`` on the CPU; ``"cuda"`` on a CPU device raises.
 
+``weighted=True`` (weighted coreness, Zhou et al.) adds a per-slot int32
+weight column ``w``: ``from_graph(weights=)`` takes the initial
+weights, ``apply_batch(insert_weights=)`` the weights of each batch's
+inserts, and both maintenance phases run the weighted h-index fixpoint
+(``engine.apply_batch_weighted``).
+
 Checkpoints use the reference's ``np.savez_compressed`` payload (n,
-capacity, src, dst, valid, n_edges, core, label), so they load in both
-directions. The host engine is in ROADMAP Queue 1 (items 1-6, the
-rest), weighted coreness is item 7 and the sharded engines item 8.
+capacity, src, dst, valid, n_edges, core, label, and ``w`` when
+weighted), so they load in both directions. The host engine is in
+ROADMAP Queue 1 (items 1-6, the rest) and the sharded engines item 8.
 
 Edge endpoints are validated on every edit path: out-of-range vertices
 raise ``ValueError`` by default, or are dropped under ``validate=False``.
@@ -39,11 +45,11 @@ import torch
 
 from ..graph.csr import CSRGraph
 from .decomposition import peel_decomposition, rank_to_labels
-from .engine import BatchStats, apply_batch
+from .engine import BatchStats, apply_batch, apply_batch_weighted
 from .graph_ops import KERNEL_BACKENDS
 from .insert import InsertStats
 from .oracle import bz_core_decomposition
-from .remove import RemoveStats
+from .remove import RemoveStats, weighted_core_fixpoint_pass
 
 _STATE_KEYS = ("n", "capacity", "src", "dst", "valid", "n_edges", "core",
                "label")
@@ -88,7 +94,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _check_engine(engine: str, weighted: bool) -> None:
+def resolve_backend(kernel_backend: Optional[str],
+                    dev: torch.device) -> str:
+    """``None`` means ``"cuda"`` on a card and ``"torch"`` on the CPU;
+    ``"cuda"`` on a CPU device raises."""
+    if kernel_backend is None:
+        kernel_backend = "cuda" if dev.type == "cuda" else "torch"
+    if kernel_backend not in KERNEL_BACKENDS:
+        raise ValueError(
+            f"unknown kernel_backend {kernel_backend!r} "
+            f"(expected one of {KERNEL_BACKENDS})"
+        )
+    if kernel_backend == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            "kernel_backend='cuda' needs a CUDA device (got "
+            f"{dev}); the CPU runs kernel_backend='torch'"
+        )
+    return kernel_backend
+
+
+def _check_engine(engine: str) -> None:
     if engine == "host":
         raise NotImplementedError(
             "engine='host' is in ROADMAP Queue 1, items 1-6, the rest; "
@@ -101,10 +126,6 @@ def _check_engine(engine: str, weighted: bool) -> None:
         )
     if engine != "unified":
         raise ValueError(f"unknown engine {engine!r}")
-    if weighted:
-        raise NotImplementedError(
-            "weighted coreness is ROADMAP Queue 1 item 7"
-        )
 
 
 @dataclasses.dataclass
@@ -123,6 +144,8 @@ class CoreMaintainer:
     engine: str = "unified"
     kernel_backend: Optional[str] = None  # None: "cuda" on a card
     validate: bool = True  # raise on out-of-range endpoints (else mask)
+    weighted: bool = False
+    w: Optional[torch.Tensor] = None  # int32 [capacity] when weighted
     last_insert_stats: Optional[InsertStats] = None
     last_remove_stats: Optional[RemoveStats] = None
     last_batch_stats: Optional[BatchStats] = None
@@ -132,19 +155,26 @@ class CoreMaintainer:
     _last_window: int = dataclasses.field(default=0, repr=False)
 
     def __post_init__(self) -> None:
-        _check_engine(self.engine, False)
+        _check_engine(self.engine)
         dev = self.src.device
-        if self.kernel_backend is None:
-            self.kernel_backend = "cuda" if dev.type == "cuda" else "torch"
-        if self.kernel_backend not in KERNEL_BACKENDS:
+        self.kernel_backend = resolve_backend(self.kernel_backend, dev)
+        if self.weighted:
+            if self.w is None:
+                # unit weights: the weighted engine then computes exactly
+                # the classic coreness
+                self.w = torch.ones(self.capacity, dtype=torch.int32,
+                                    device=dev)
+            elif tuple(self.w.shape) != (self.capacity,):
+                raise ValueError(
+                    f"w has shape {tuple(self.w.shape)}, expected the "
+                    f"slot table shape ({self.capacity},)"
+                )
+            else:
+                self.w = self.w.to(device=dev, dtype=torch.int32)
+        elif self.w is not None:
             raise ValueError(
-                f"unknown kernel_backend {self.kernel_backend!r} "
-                f"(expected one of {KERNEL_BACKENDS})"
-            )
-        if self.kernel_backend == "cuda" and dev.type != "cuda":
-            raise ValueError(
-                "kernel_backend='cuda' needs a CUDA device (got "
-                f"{dev}); the CPU runs kernel_backend='torch'"
+                "w= (per-slot edge weights) needs weighted=True; the "
+                "unweighted engine would silently ignore the column"
             )
         if self.live_ub < 0 or self.hwm_ub < 0:
             live = torch.nonzero(self.valid).flatten()
@@ -167,25 +197,68 @@ class CoreMaintainer:
         weighted: bool = False,
         validate: bool = True,
         device=None,
+        weights=None,
     ) -> "CoreMaintainer":
         """Build a maintainer from a static graph. ``init="host-bz"``
         runs the sequential BZ oracle on the host; ``init="jax-peel"``
         (the reference's name, kept so callers port unchanged) runs the
         level-synchronous peel on the device. The ``edge_slot`` mirror
-        is left to be built on first access."""
-        _check_engine(engine, weighted)
+        is left to be built on first access.
+
+        ``weighted=True`` takes ``weights`` aligned with
+        ``g.edge_array()`` (positive integers; None means all ones) and
+        bypasses ``init``: the initial cores come from the engine's own
+        weighted h-index fixpoint, from the weighted-degree bound, on
+        the maintainer's device and kernel backend (the integer result
+        cannot depend on the backend), and the initial labels are the
+        ``(core, vertex id)`` lexicographic ranks."""
+        _check_engine(engine)
         dev = resolve_device(device)
         edges = g.edge_array()
         m = edges.shape[0]
         capacity = capacity or max(16, 2 * m)
         if capacity <= m:
             raise ValueError("capacity must exceed edge count")
+        if weights is not None and not weighted:
+            raise ValueError("weights= needs weighted=True")
         src = torch.zeros(capacity, dtype=torch.int32, device=dev)
         dst = torch.zeros(capacity, dtype=torch.int32, device=dev)
         val = torch.zeros(capacity, dtype=torch.bool, device=dev)
         src[:m] = torch.from_numpy(edges[:, 0].astype(np.int32)).to(dev)
         dst[:m] = torch.from_numpy(edges[:, 1].astype(np.int32)).to(dev)
         val[:m] = True
+        common = dict(n=g.n, capacity=capacity, src=src, dst=dst, valid=val,
+                      n_edges=torch.tensor(m, dtype=torch.int32, device=dev),
+                      n_levels=g.n + 2, engine=engine, validate=validate,
+                      live_ub=m, hwm_ub=m)
+        if weighted:
+            wv = (np.ones(m, dtype=np.int64) if weights is None
+                  else np.asarray(weights, dtype=np.int64).reshape(-1))
+            if wv.shape[0] != m:
+                raise ValueError(
+                    f"weights have length {wv.shape[0]} but the graph "
+                    f"has {m} edges"
+                )
+            if wv.size and (wv < 1).any():
+                raise ValueError("edge weights must be positive integers")
+            backend = resolve_backend(kernel_backend, dev)
+            wcol = torch.zeros(capacity, dtype=torch.int32, device=dev)
+            wcol[:m] = torch.from_numpy(wv.astype(np.int32)).to(dev)
+            deg_w = np.zeros(g.n, dtype=np.int64)
+            np.add.at(deg_w, edges[:, 0], wv)
+            np.add.at(deg_w, edges[:, 1], wv)
+            core, _, _ = weighted_core_fixpoint_pass(
+                src, dst, val, wcol,
+                torch.from_numpy(deg_w.astype(np.int32)).to(dev), g.n,
+                kernel_backend=backend,
+            )
+            core_np = core.cpu().numpy()
+            order = np.lexsort((np.arange(g.n), core_np))
+            rank = np.zeros(g.n, dtype=np.int32)
+            rank[order] = np.arange(g.n, dtype=np.int32)
+            label = rank_to_labels(torch.from_numpy(rank).to(dev))
+            return cls(core=core, label=label, kernel_backend=backend,
+                       weighted=True, w=wcol, **common)
         if init == "host-bz":
             adj = [set(g.neighbors(v).tolist()) for v in range(g.n)]
             core_np, order = bz_core_decomposition(g.n, adj)
@@ -200,22 +273,8 @@ class CoreMaintainer:
             label = rank_to_labels(rank)
         else:
             raise ValueError(init)
-        return cls(
-            n=g.n,
-            capacity=capacity,
-            src=src,
-            dst=dst,
-            valid=val,
-            n_edges=torch.tensor(m, dtype=torch.int32, device=dev),
-            core=core,
-            label=label,
-            n_levels=g.n + 2,
-            engine=engine,
-            kernel_backend=kernel_backend,
-            validate=validate,
-            live_ub=m,
-            hwm_ub=m,
-        )
+        return cls(core=core, label=label, kernel_backend=kernel_backend,
+                   **common)
 
     @classmethod
     def from_state(
@@ -229,10 +288,11 @@ class CoreMaintainer:
     ) -> "CoreMaintainer":
         """Build a maintainer from the reference's state as numpy arrays:
         the keys of its ``save`` payload (n, capacity, src, dst, valid,
-        n_edges, core, label). A weight column ``w``, if present, is
-        ignored by the unweighted engine, as the reference's unweighted
-        ``load`` ignores it."""
-        _check_engine(engine, weighted)
+        n_edges, core, label, and ``w`` of a weighted maintainer). The
+        unweighted engine ignores a weight column, as the reference's
+        unweighted ``load`` does; ``weighted=True`` without one adopts
+        unit weights."""
+        _check_engine(engine)
         dev = resolve_device(device)
         missing = [k for k in _STATE_KEYS if k not in arrays]
         if missing:
@@ -257,6 +317,8 @@ class CoreMaintainer:
             engine=engine,
             kernel_backend=kernel_backend,
             validate=validate,
+            weighted=weighted,
+            w=t("w", np.int32) if weighted and "w" in arrays else None,
         )
 
     # -- queries -------------------------------------------------------------
@@ -291,11 +353,26 @@ class CoreMaintainer:
         return int(self.valid.sum())
 
     # -- validation ----------------------------------------------------------
-    def _validated(self, edges, what: str) -> np.ndarray:
+    def _validated(self, edges, what: str, weights=None):
         """Normalize an edge batch and enforce endpoint bounds: with
         ``validate`` an out-of-range endpoint raises, otherwise the
-        offending rows are dropped."""
+        offending rows are dropped. ``weights``, when given, must align
+        row for row, always validate strictly (positive integers) and
+        are dropped with their rows. Returns ``edges``, or ``(edges,
+        weights)`` when weights were passed."""
         edges = _as_edge_array(edges)
+        if weights is not None:
+            weights = np.asarray(weights, dtype=np.int64).reshape(-1)
+            if weights.shape[0] != edges.shape[0]:
+                raise ValueError(
+                    f"{what} weights have length {weights.shape[0]} but "
+                    f"the edge batch has {edges.shape[0]} rows"
+                )
+            if weights.size and (weights < 1).any():
+                raise ValueError(
+                    f"{what} edge weights must be positive integers, "
+                    f"got {int(weights[weights < 1][0])}"
+                )
         if edges.size:
             bad = ((edges < 0) | (edges >= self.n)).any(axis=1)
             if bad.any():
@@ -306,19 +383,36 @@ class CoreMaintainer:
                         f"n={self.n} (pass validate=False to mask instead)"
                     )
                 edges = edges[~bad]
+                if weights is not None:
+                    weights = weights[~bad]
+        if weights is not None:
+            return edges, weights
         return edges
 
     # -- edits ----------------------------------------------------------------
     def apply_batch(self, insert_edges=None, remove_edges=None,
                     insert_weights=None) -> BatchStats:
         """Apply one mixed batch (removals first, then insertions) on the
-        device. Both lists are validated before any state changes."""
-        if insert_weights is not None:
-            raise NotImplementedError(
-                "insert_weights= (weighted coreness) is ROADMAP Queue 1 "
-                "item 7"
+        device. Both lists are validated before any state changes.
+
+        ``insert_weights`` (weighted maintainers only) aligns row for row
+        with ``insert_edges``; omitted means weight 1 per edge. An
+        in-batch duplicate keeps the FIRST row's weight, inserting a
+        live edge keeps the stored weight, and remove + insert in one
+        batch commits the new weight."""
+        if insert_weights is not None and not self.weighted:
+            raise ValueError(
+                "insert_weights= needs weighted=True; the unweighted "
+                "engine would silently drop the weights"
             )
-        ins = self._validated(insert_edges, "insert")
+        if self.weighted:
+            if insert_weights is None:
+                insert_weights = np.ones(
+                    _as_edge_array(insert_edges).shape[0], dtype=np.int64)
+            ins, ins_w = self._validated(insert_edges, "insert",
+                                         weights=insert_weights)
+        else:
+            ins = self._validated(insert_edges, "insert")
         rm = self._validated(remove_edges, "remove")
         dev = self.device
         b_ins = ins.shape[0]
@@ -352,14 +446,27 @@ class CoreMaintainer:
             self._refresh_bounds()
             window = self._window(b_ins)
         self._last_window = window
-        lanes = [torch.from_numpy(x).to(dev)
-                 for x in (iu, iv, iok, ru, rv, rok)]
-        (self.src, self.dst, self.valid, self.core, self.label,
-         self.n_edges, stats) = apply_batch(
-            self.src, self.dst, self.valid, self.core, self.label,
-            self.n_edges, *lanes, self.n, self.n_levels, window,
-            kernel_backend=self.kernel_backend,
-        )
+        if self.weighted:
+            # padded lanes carry weight 1; iok=False keeps them out of
+            # the slot writes and the total-weight promotion bound
+            iw = _pad_pow2(ins_w.astype(np.int32), 1)
+            lanes = [torch.from_numpy(x).to(dev)
+                     for x in (iu, iv, iw, iok, ru, rv, rok)]
+            (self.src, self.dst, self.valid, self.w, self.core, self.label,
+             self.n_edges, stats) = apply_batch_weighted(
+                self.src, self.dst, self.valid, self.w, self.core,
+                self.label, self.n_edges, *lanes, self.n, self.n_levels,
+                window, kernel_backend=self.kernel_backend,
+            )
+        else:
+            lanes = [torch.from_numpy(x).to(dev)
+                     for x in (iu, iv, iok, ru, rv, rok)]
+            (self.src, self.dst, self.valid, self.core, self.label,
+             self.n_edges, stats) = apply_batch(
+                self.src, self.dst, self.valid, self.core, self.label,
+                self.n_edges, *lanes, self.n, self.n_levels, window,
+                kernel_backend=self.kernel_backend,
+            )
         # monotone bounds: each insert can raise the high-water mark and
         # the live count by at most one; removals only help
         self.hwm_ub = min(self.hwm_ub + b_ins, self.capacity)
@@ -430,6 +537,10 @@ class CoreMaintainer:
         dst[:m] = self.dst[live]
         val[:m] = True
         self.src, self.dst, self.valid = src, dst, val
+        if self.weighted:
+            w = torch.zeros(new_cap, dtype=torch.int32, device=dev)
+            w[:m] = self.w[live]
+            self.w = w
         self.n_edges = torch.tensor(m, dtype=torch.int32, device=dev)
         self.capacity = new_cap
         self.live_ub = m
@@ -445,14 +556,16 @@ class CoreMaintainer:
         self.src = torch.cat([self.src, self.src.new_zeros(pad)])
         self.dst = torch.cat([self.dst, self.dst.new_zeros(pad)])
         self.valid = torch.cat([self.valid, self.valid.new_zeros(pad)])
+        if self.weighted:
+            self.w = torch.cat([self.w, self.w.new_zeros(pad)])
         self.capacity = new_cap
 
     # -- persistence -------------------------------------------------------------
     def state(self) -> Dict[str, np.ndarray]:
         """The checkpoint payload as numpy arrays — the reference's
-        ``save`` keys and dtypes, so ``from_state`` of either package
-        reads it."""
-        return dict(
+        ``save`` keys and dtypes (``w`` added when weighted), so
+        ``from_state`` of either package reads it."""
+        payload = dict(
             n=self.n,
             capacity=self.capacity,
             src=self.src.cpu().numpy(),
@@ -462,6 +575,9 @@ class CoreMaintainer:
             core=self.cores(),
             label=self.labels(),
         )
+        if self.weighted:
+            payload["w"] = self.w.cpu().numpy()
+        return payload
 
     def save(self, path: str) -> None:
         """Checkpoint the maintainer (the free-list is implicit: a dead

@@ -18,8 +18,8 @@ The reference donates its buffers to the compiled program; the port
 instead updates the slot table IN PLACE: ``apply_batch`` hands
 ``batch_program`` views of the active window, and the tombstones and
 slot writes land directly in the full-capacity tensors (no slice and
-splice). The sharded, halo and weighted programs are ROADMAP Queue 1
-items 7 and 8.
+splice). ``apply_batch_weighted`` does the same with the slot table's
+weight column. The sharded and halo programs are ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -28,9 +28,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import graph_ops as G
-from .insert import freelist_alloc, promotion_fixpoint
+from .insert import (freelist_alloc, promotion_fixpoint,
+                     weighted_promotion_fixpoint)
 from .order import maybe_renumber
-from .remove import removal_fixpoint
+from .remove import removal_fixpoint, weighted_core_fixpoint_pass
 from .vertex_layout import ReplicatedVertices
 
 _BIG = 1 << 62  # sentinel key: tombstones sort past every real key
@@ -108,15 +109,23 @@ def batch_program(src, dst, valid, core, label, n_edges,
     ``src``/``dst``/``valid`` are updated IN PLACE (and returned); pass
     views of the active window to update a larger table. Returns
     ``(src, dst, valid, core, label, n_edges, stats)``.
+
+    ``w`` (the slot table's weight column, updated in place too) and
+    ``ins_w`` (per-lane insert weights) switch the program into WEIGHTED
+    mode: both phases run the decrease-only weighted h-index fixpoint
+    (removal from the current cores, promotion from ``core + total
+    batch weight``), labels stay frozen through them, and ONE forced
+    renumber re-canonicalizes the labels whenever any core moved. The
+    weighted return is ``(src, dst, valid, w, core, label, n_edges,
+    stats)``.
     """
     if axis is not None or freelist != "interleaved":
         raise NotImplementedError(
             "the sharded batch program is ROADMAP Queue 1 item 8"
         )
-    if w is not None or ins_w is not None:
-        raise NotImplementedError(
-            "the weighted batch program is ROADMAP Queue 1 item 7"
-        )
+    weighted = w is not None
+    if weighted != (ins_w is not None):
+        raise ValueError("w and ins_w come together (weighted mode)")
     if layout is None:
         layout = ReplicatedVertices(n, device=core.device)
     G._check_layout(layout)
@@ -142,10 +151,16 @@ def batch_program(src, dst, valid, core, label, n_edges,
     n_removed = rm_mask.sum(dtype=torch.int32)
 
     core_pre_rm = core
-    core, label, rm_rounds, hi, dout_same, rm_fmax = removal_fixpoint(
-        src, dst, valid, core, label, n, n_levels, layout=layout,
-        kernel_backend=kernel_backend,
-    )
+    if weighted:
+        core, rm_rounds, rm_fmax = weighted_core_fixpoint_pass(
+            src, dst, valid, w, core, n, layout=layout,
+            kernel_backend=kernel_backend,
+        )
+    else:
+        core, label, rm_rounds, hi, dout_same, rm_fmax = removal_fixpoint(
+            src, dst, valid, core, label, n, n_levels, layout=layout,
+            kernel_backend=kernel_backend,
+        )
     n_dropped = (core != core_pre_rm).sum(dtype=torch.int32)
 
     # ---- 2. insert dedup + membership against the post-removal table --
@@ -160,6 +175,11 @@ def batch_program(src, dst, valid, core, label, n_edges,
     src[slots] = ilo[iok].to(src.dtype)
     dst[slots] = ihi[iok].to(dst.dtype)
     valid[slots] = True
+    if weighted:
+        # dedup kept the FIRST lane of an in-batch duplicate, so its
+        # weight is the one written; a live re-insert was masked above
+        # and keeps the stored weight
+        w[slots] = ins_w[iok].to(w.dtype)
     n_inserted = iok.sum(dtype=torch.int32)
     n_recycled = (lpos < hwm0).sum(dtype=torch.int32)
     # n_edges is the LIVE edge count
@@ -168,20 +188,33 @@ def batch_program(src, dst, valid, core, label, n_edges,
     # O(batch) delta keeps the shared (hi, dout_same) exact for the table
     # with the new edges
     core_pre_ins = core
-    hi_u, hi_v, do_u, do_v = G.hi_dout_indicators(core, label, ilo, ihi, iok)
-    hi = layout.add_at(hi, ilo, hi_u.to(torch.int32))
-    hi = layout.add_at(hi, ihi, hi_v.to(torch.int32))
-    dout_same = layout.add_at(dout_same, ilo, do_u.to(torch.int32))
-    dout_same = layout.add_at(dout_same, ihi, do_v.to(torch.int32))
+    if weighted:
+        total_w = torch.where(iok, ins_w, torch.zeros_like(ins_w)).sum(
+            dtype=torch.int32)
+        core, ins_rounds, ins_fmax = weighted_promotion_fixpoint(
+            src, dst, valid, w, core, total_w, n, layout=layout,
+            kernel_backend=kernel_backend,
+        )
+        v_plus = core != core_pre_ins
+    else:
+        hi_u, hi_v, do_u, do_v = G.hi_dout_indicators(core, label, ilo,
+                                                      ihi, iok)
+        hi = layout.add_at(hi, ilo, hi_u.to(torch.int32))
+        hi = layout.add_at(hi, ihi, hi_v.to(torch.int32))
+        dout_same = layout.add_at(dout_same, ilo, do_u.to(torch.int32))
+        dout_same = layout.add_at(dout_same, ihi, do_v.to(torch.int32))
 
-    core, label, ins_rounds, v_plus, ins_fmax = promotion_fixpoint(
-        src, dst, valid, core, label, ilo, ihi, iok, hi, dout_same,
-        n, n_levels, layout=layout, kernel_backend=kernel_backend,
-    )
+        core, label, ins_rounds, v_plus, ins_fmax = promotion_fixpoint(
+            src, dst, valid, core, label, ilo, ihi, iok, hi, dout_same,
+            n, n_levels, layout=layout, kernel_backend=kernel_backend,
+        )
     n_promoted = (core != core_pre_ins).sum(dtype=torch.int32)
 
     # ---- 4. renumber gate ----------------------------------------------
-    label, renumbered = maybe_renumber(core, label)
+    # the weighted fixpoints froze the labels, so any moved core forces
+    # one relabel; force=None keeps the unweighted gate as it was
+    force = ((n_dropped > 0) | (n_promoted > 0)) if weighted else None
+    label, renumbered = maybe_renumber(core, label, force=force)
 
     stats = BatchStats(
         n_inserted=n_inserted,
@@ -197,6 +230,8 @@ def batch_program(src, dst, valid, core, label, n_edges,
         max_frontier=torch.maximum(rm_fmax, ins_fmax),
         n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
     )
+    if weighted:
+        return src, dst, valid, w, core, label, n_edges, stats
     return src, dst, valid, core, label, n_edges, stats
 
 
@@ -220,3 +255,21 @@ def apply_batch(src, dst, valid, core, label, n_edges,
         n, n_levels, kernel_backend=kernel_backend,
     )
     return src, dst, valid, core, label, n_edges, stats
+
+
+def apply_batch_weighted(src, dst, valid, w, core, label, n_edges,
+                         ins_u, ins_v, ins_w, ins_ok, rm_u, rm_v, rm_ok,
+                         n: int, n_levels: int, active_cap: int,
+                         kernel_backend: str = "torch"):
+    """``apply_batch`` with the slot table's weight column: ``w`` is
+    updated in place over the same active window, and the batch's
+    per-lane insert weights ``ins_w`` feed the weighted program body.
+    Returns ``(src, dst, valid, w, core, label, n_edges, stats)``."""
+    _, _, _, _, core, label, n_edges, stats = batch_program(
+        src[:active_cap], dst[:active_cap], valid[:active_cap],
+        core, label, n_edges,
+        ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
+        n, n_levels, kernel_backend=kernel_backend,
+        w=w[:active_cap], ins_w=ins_w,
+    )
+    return src, dst, valid, w, core, label, n_edges, stats

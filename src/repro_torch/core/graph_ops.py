@@ -158,3 +158,44 @@ def din_and_expand(src, dst, valid, core, label, rp, n: int, layout=None,
     fwd_to_src = same & (label[dst] < label[src]) & rp[dst]
     din = _seg2(fwd_to_src, fwd_to_dst, src, dst, n, layout)
     return din, din > 0
+
+
+def weighted_support(src, dst, valid, w, core, thresh, n: int, layout=None,
+                     backend: str = "torch") -> torch.Tensor:
+    """Weighted generalization of ``count_ge``: per-vertex SUM of incident
+    edge weights to neighbours u with ``core[u] >= thresh[v]`` (the
+    inner statistic of the weighted h-index bisection; with unit weights
+    and ``thresh == core`` this IS mcd)."""
+    if backend == "cuda":
+        _check_layout(layout)
+        out = coremaint.coo_stat(src, dst, valid, core, None, n,
+                                 stat="wsum", aux=thresh, edge_w=w)
+        return out[:, 0]
+    wi = w.to(torch.int32)
+    zero = torch.zeros_like(wi)
+    to_src = torch.where(valid & (core[dst] >= thresh[src]), wi, zero)
+    to_dst = torch.where(valid & (core[src] >= thresh[dst]), wi, zero)
+    return _seg2(to_src, to_dst, src, dst, n, layout)
+
+
+def weighted_h_index(src, dst, valid, w, core, upper, n: int, layout=None,
+                     backend: str = "torch") -> torch.Tensor:
+    """Per-vertex weighted h-index by lockstep bisection:
+    ``H_w(v) = max{h <= upper[v] : sum of weights to nbrs with
+    core >= h is >= h}`` (Zhou et al., WWW'21). The feasible set is a
+    prefix, so bisection over ``[0, upper]`` takes O(log maxW) steps,
+    each ONE weighted support pass over the edge window. ``lo`` stays
+    feasible (``lo = 0`` trivially); converged lanes re-test
+    ``mid == lo`` and stay fixed, so the loop runs until the slowest
+    lane converges. The reference's ``lax.while_loop`` is a Python loop
+    here, one host sync per step (its condition)."""
+    upper = torch.clamp(upper.to(torch.int32), min=0)
+    lo = torch.zeros_like(upper)
+    hi = upper
+    while bool((lo < hi).any()):
+        mid = torch.div(lo + hi + 1, 2, rounding_mode="floor")
+        s = weighted_support(src, dst, valid, w, core, mid, n, layout,
+                             backend)
+        ok = s >= mid
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid - 1)
+    return lo

@@ -16,8 +16,11 @@ Round structure (all levels of all inserted edges processed together):
 Rounds repeat while the k-order certificate is violated somewhere. Each
 of the reference's ``lax.while_loop``s is a Python loop here with one
 host sync per iteration (its condition); round counts match exactly.
-The host engine's ``write_edge_slots`` / ``insert_batch`` are in ROADMAP
-Queue 1, items 1-6, the rest.
+The weighted engine's promotion phase (``weighted_promotion_fixpoint``)
+has no order machinery: it is the removal phase's weighted h-index
+fixpoint started from ``core + total batch weight``. The host engine's
+``write_edge_slots`` / ``insert_batch`` are in ROADMAP Queue 1, items
+1-6, the rest.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from . import graph_ops as G
 from ..kernels import coremaint
 from .order import place_block
+from .remove import weighted_core_fixpoint_pass
 from .vertex_layout import ReplicatedVertices
 
 
@@ -218,3 +222,18 @@ def _evict_fixpoint(src, dst, valid, core, cand, hi, n: int,
         cand = new_cand
         if not bool(changed):
             return cand, evict_round, fmax
+
+
+def weighted_promotion_fixpoint(src, dst, valid, w, core, total_w, n: int,
+                                layout: ReplicatedVertices | None = None,
+                                kernel_backend: str = "torch"):
+    """Weighted promotion phase: the removal phase's decrease-only
+    h-index fixpoint (remove.weighted_core_fixpoint_pass), started from
+    the sound upper bound ``core + total_w``. A batch of total inserted
+    weight W can raise any vertex by at most W, including vertices with
+    no inserted edge incident (docs/DESIGN.md §4.5 of the reference).
+    Returns ``(core, rounds, max_frontier)``."""
+    return weighted_core_fixpoint_pass(
+        src, dst, valid, w, core + total_w, n, layout=layout,
+        kernel_backend=kernel_backend,
+    )

@@ -9,6 +9,9 @@ The mcd cascade is a decrease-only fixpoint over dense per-vertex state:
 
 Every round handles all affected levels of all removed edges at once;
 this round's droppers are placed at the tail of their new level.
+
+The weighted engine runs ``weighted_core_fixpoint_pass`` instead: the
+same decrease-only shape with the weighted h-index in place of mcd.
 """
 from __future__ import annotations
 
@@ -85,3 +88,38 @@ def removal_fixpoint(
         core = new_core
     rounds = torch.tensor(rounds, dtype=torch.int32, device=core.device)
     return core, label, rounds, hi, dout_same, fmax
+
+
+def weighted_core_fixpoint_pass(
+    src, dst, valid, w, core, n: int,
+    layout: ReplicatedVertices | None = None,
+    kernel_backend: str = "torch",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decrease-only weighted h-index fixpoint (Zhou et al., WWW'21): per
+    round ``core <- min(core, H_w(core))`` (graph_ops.weighted_h_index)
+    until no vertex moves. Converges to the exact weighted cores from
+    any state upper-bounding them: the removal phase starts from the
+    current cores, the promotion phase from ``core + W`` (W the batch's
+    total inserted weight).
+
+    Labels are frozen throughout; the engine renumbers once per batch.
+    Returns ``(core, rounds, max_frontier)``; ``rounds`` counts body
+    executions, including the last one, which moves nothing, as the
+    reference's ``lax.while_loop`` does."""
+    if layout is None:
+        layout = ReplicatedVertices(n, device=core.device)
+    G._check_layout(layout)
+    fmax = torch.zeros((), dtype=torch.int32, device=core.device)
+    rounds = 0
+    while True:
+        h = G.weighted_h_index(src, dst, valid, w, core, core, n, layout,
+                               backend=kernel_backend)
+        new_core = torch.minimum(core, h)
+        changed = new_core < core
+        fmax = torch.maximum(fmax, layout.frontier_peak(changed))
+        rounds += 1
+        core = new_core
+        if not bool(layout.any_owned(changed)):
+            break
+    rounds = torch.tensor(rounds, dtype=torch.int32, device=core.device)
+    return core, rounds, fmax

@@ -6,6 +6,7 @@
 //                                                  + removal_decide_kernel
 //   fused_promotion_stats (_promotion_kernel)   -> stat_kernel<HI_DOUT>
 //                                                  + promotion_decide_kernel
+//   coo_stat(stat="wsum") (_wsum_kernel)        -> wsum_kernel
 //
 // Design. The work is edge-parallel: one thread per slot of the COO window
 // reads src, dst and valid (coalesced), gathers core/label/aux of both
@@ -26,6 +27,14 @@
 // vertex state read once and the output written once. In practice the
 // random endpoint gathers and the atomics on high-degree (hub) vertices
 // of power-law graphs limit it; making that fast is later work.
+//
+// wsum. The weighted h-index bisection's inner pass: each live slot adds its
+// int32 weight to an endpoint whose OTHER endpoint's core clears the
+// endpoint's own int32 threshold (the bisection's mid). The thresholds are
+// integers, not a mask, and the contribution is the weight, not 1, so it
+// has its own kernel and C entry point, as the TPU kernel has its own body.
+// Bytes: valid (1 B a slot), src, dst and w (12 B a live slot), core,
+// thresh and the output (4 B a vertex each).
 //
 // Out-of-range endpoints follow jnp.take(fill_value=0) in the reference:
 // an index in [-n, 0) wraps once, anything else outside [0, n) reads 0;
@@ -156,6 +165,30 @@ promotion_decide_kernel(const int* __restrict__ stats2,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+wsum_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+            const uint8_t* __restrict__ valid, const int* __restrict__ w,
+            const int* __restrict__ core, const int* __restrict__ thresh,
+            int* __restrict__ out, long long E, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += stride) {
+    if (!valid[e]) continue;
+    const int wt = w[e];
+    if (wt == 0) continue;  // a zero contribution issues no atomic
+    const int s = src[e];
+    const int d = dst[e];
+    const long long sg = wrap(s, n);
+    const long long dg = wrap(d, n);
+    if (s >= 0 && (long long)s < n &&
+        take0(core, dg, n) >= take0(thresh, sg, n))
+      atomicAdd(out + s, wt);
+    if (d >= 0 && (long long)d < n &&
+        take0(core, sg, n) >= take0(thresh, dg, n))
+      atomicAdd(out + d, wt);
+  }
+}
+
 unsigned blocks_for(long long work) {
   long long b = (work + kThreads - 1) / kThreads;
   if (b > kMaxBlocks) b = kMaxBlocks;
@@ -196,6 +229,16 @@ int coremaint_stat(const void* src, const void* dst, const void* valid,
     case SAME_IN: launch_stat<SAME_IN>(s, d, v, c, l, a, o, E, n, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// out must be zeroed [n] int32; every pointer is required.
+int coremaint_wsum(const void* src, const void* dst, const void* valid,
+                   const void* w, const void* core, const void* thresh,
+                   void* out, long long E, long long n, void* stream) {
+  wsum_kernel<<<blocks_for(E), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)src, (const int*)dst, (const uint8_t*)valid, (const int*)w,
+      (const int*)core, (const int*)thresh, (int*)out, E, n);
   return (int)cudaGetLastError();
 }
 

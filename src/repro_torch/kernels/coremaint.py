@@ -13,7 +13,11 @@ Each wrapper here replaces one Pallas TPU kernel of the reference
   ``mcd_hi_dout`` stats, then ``drop = (mcd < core) & (core > 0)`` and
   ``new_core = core - drop``;
 * ``fused_promotion_stats`` <- ``fused_promotion_stats``: the
-  ``hi_dout`` stats and ``viol = hi + dout_same > core``.
+  ``hi_dout`` stats and ``viol = hi + dout_same > core``;
+* ``coo_stat(stat="wsum")`` <- ``coo_stat(stat="wsum")``
+  (``_wsum_kernel``): per vertex, the sum of the int32 slot weights
+  ``edge_w`` to neighbours whose core clears the vertex's int32
+  threshold ``aux`` — the weighted h-index bisection's inner pass.
 
 On a CUDA tensor a wrapper launches its kernel from
 ``csrc/coremaint.cu`` (edge-parallel, one thread per slot, int32
@@ -26,8 +30,8 @@ any order, so the two fused wrappers launch a second tiny per-vertex
 kernel after the edge pass, and count both launches.
 
 What bounds them on an H100: the bytes of the window (src, dst, valid:
-about 9 B a slot), the vertex state read once and the output written
-once. On power-law (RMAT) graphs the random endpoint gathers and the
+about 9 B a slot; wsum adds the 4 B weight), the vertex state read once
+and the output written once. On power-law (RMAT) graphs the random endpoint gathers and the
 atomic contention at hub vertices are the likely limit.
 
 The library is built with ``nvcc`` from the package's own source on
@@ -63,7 +67,7 @@ _LABEL_STATS = ("mcd_hi_dout", "hi_dout", "din")
 # kernel launches, counted where each kernel is launched: one entry per
 # coo_stat stat (each is its own instance of the templated kernel) and
 # one per fused wrapper, which launches two kernels per call
-LAUNCHES = {**{f"coo_stat[{s}]": 0 for s in _STATS},
+LAUNCHES = {**{f"coo_stat[{s}]": 0 for s in (*_STATS, "wsum")},
             "fused_removal_round": 0, "fused_promotion_stats": 0}
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coremaint.cu"
@@ -135,8 +139,9 @@ def _library() -> ctypes.CDLL:
                                        ctypes.c_int, p]
         lib.coremaint_removal_decide.argtypes = [p, p, p, p, i64, p]
         lib.coremaint_promotion_decide.argtypes = [p, p, p, i64, p]
+        lib.coremaint_wsum.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
         for fn in (lib.coremaint_stat, lib.coremaint_removal_decide,
-                   lib.coremaint_promotion_decide):
+                   lib.coremaint_promotion_decide, lib.coremaint_wsum):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -254,6 +259,30 @@ def coo_stat_plain(src, dst, valid, core, label, n, stat="mcd_hi_dout",
     return out
 
 
+def wsum_plain(src, dst, valid, edge_w, core, thresh, n):
+    """``coo_stat(stat="wsum")`` in plain PyTorch: ``[n, 1]`` int32
+    sums of the slot weight where the other endpoint's core clears the
+    endpoint's threshold; endpoints outside ``[0, n)`` as in
+    ``coo_stat_plain``."""
+    out = torch.zeros((n, 1), dtype=torch.int32, device=src.device)
+    if src.shape[0] == 0 or n == 0:
+        return out
+    src = src.long()
+    dst = dst.long()
+    valid = valid != 0
+    wi = edge_w.to(torch.int32)
+    thresh = thresh.to(torch.int32)
+    cs, cd = _take0(core, src, n), _take0(core, dst, n)
+    ts, td = _take0(thresh, src, n), _take0(thresh, dst, n)
+    zero = torch.zeros_like(wi)
+    for idx, col in ((src, torch.where(valid & (cd >= ts), wi, zero)),
+                     (dst, torch.where(valid & (cs >= td), wi, zero))):
+        ok = (idx >= 0) & (idx < n)
+        out.index_add_(0, torch.where(ok, idx, torch.zeros_like(idx)),
+                       torch.where(ok, col, zero)[:, None])
+    return out
+
+
 def fused_removal_round_plain(src, dst, valid, core, label, n):
     stats = coo_stat_plain(src, dst, valid, core, label, n, "mcd_hi_dout")
     drop = (stats[:, 0] < core) & (core > 0)
@@ -287,23 +316,58 @@ def _launch_stat(src, dst, valid, core, label, n, stat, aux):
     return out
 
 
+def _wsum(src, dst, valid, core, label, n, aux, edge_w):
+    """``coo_stat(stat="wsum")``; as in the reference, an empty window
+    or ``n == 0`` gives zeros before the inputs are required."""
+    _check_inputs(src, dst, valid, core, label, n, aux, needs_label=False)
+    if src.shape[0] == 0 or n == 0:
+        return torch.zeros((n, 1), dtype=torch.int32, device=src.device)
+    if edge_w is None or aux is None:
+        raise ValueError(
+            "stat='wsum' needs edge_w (per-slot weights) and aux "
+            "(per-vertex integer thresholds)"
+        )
+    if edge_w.shape[0] != src.shape[0]:
+        raise ValueError("edge_w must have the window's length")
+    if edge_w.device != src.device:
+        raise ValueError("all inputs must be on one device")
+    if src.device.type == "cpu":
+        return wsum_plain(src, dst, valid, edge_w, core, aux, n)
+    if not edge_w.is_contiguous():
+        raise ValueError("the CUDA kernels take contiguous tensors")
+    out = torch.zeros((n, 1), dtype=torch.int32, device=src.device)
+    # the converted copies stay referenced until the launch is queued
+    valid8 = _u8(valid)
+    w32 = edge_w.to(torch.int32)
+    thresh = aux.to(torch.int32)
+    rc = _library().coremaint_wsum(
+        src.data_ptr(), dst.data_ptr(), valid8.data_ptr(), w32.data_ptr(),
+        core.data_ptr(), thresh.data_ptr(), out.data_ptr(), src.shape[0], n,
+        _stream(),
+    )
+    _check(rc, "coremaint_wsum")
+    LAUNCHES["coo_stat[wsum]"] += 1
+    return out
+
+
 def coo_stat(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
              core: torch.Tensor, label: Optional[torch.Tensor], n: int,
              stat: str = "mcd_hi_dout",
-             aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+             aux: Optional[torch.Tensor] = None,
+             edge_w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LOCAL packed per-vertex statistics over a COO edge-slot window:
     ``[n, C]`` int32. ``aux`` is the per-vertex mask of "din" (``rp``)
-    and "same_in" (the candidate mask); the other stats ignore it.
-    ``label`` may be None for "mcd" and "same_in", which never read it.
+    and "same_in" (the candidate mask), or the per-vertex integer
+    thresholds of "wsum"; the other stats ignore it. ``edge_w`` is the
+    per-slot weight column, read by "wsum" alone. ``label`` may be None
+    for "mcd", "same_in" and "wsum", which never read it.
 
-    Replaces the reference's Pallas ``coo_stat`` (``_stat_kernel``); on
-    the card one edge-parallel launch of ``stat_kernel``, bounded by
-    the window's bytes plus the endpoint gathers and hub atomics."""
+    Replaces the reference's Pallas ``coo_stat`` (``_stat_kernel``, and
+    ``_wsum_kernel`` for "wsum"); on the card one edge-parallel launch
+    of ``stat_kernel`` (``wsum_kernel``), bounded by the window's bytes
+    plus the endpoint gathers and hub atomics."""
     if stat == "wsum":
-        raise NotImplementedError(
-            "stat='wsum' (weighted support) is ROADMAP Queue 2 item d, "
-            "ported with weighted coreness (Queue 1 item 7)"
-        )
+        return _wsum(src, dst, valid, core, label, n, aux, edge_w)
     ncols = _STATS[stat][1]  # KeyError on an unknown stat
     _check_inputs(src, dst, valid, core, label, n, aux,
                   needs_label=stat in _LABEL_STATS)

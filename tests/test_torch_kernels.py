@@ -1,6 +1,7 @@
 """The port's core-maintenance kernels (src/repro_torch/kernels/coremaint.py)
 against the reference's Pallas kernels run in interpret mode, bit for bit
-(tolerance 0: every statistic is an integer count).
+(tolerance 0: every statistic is an integer count or an integer weight
+sum).
 
 On the CPU the port's wrappers run their plain PyTorch versions;
 tests/test_torch_gpu.py holds the CUDA kernels to those plain versions
@@ -157,8 +158,91 @@ def test_unknown_stat_raises_key_error():
         _ref(ref.coo_stat, arrays, 20, stat="nope")
     with pytest.raises(KeyError):
         _port(K.coo_stat, arrays, 20, stat="nope")
-    with pytest.raises(NotImplementedError, match="Queue 2 item d"):
+    # "wsum" is a known stat that needs edge_w and aux
+    with pytest.raises(ValueError, match="edge_w"):
+        _ref(ref.coo_stat, arrays, 20, stat="wsum")
+    with pytest.raises(ValueError, match="edge_w"):
         _port(K.coo_stat, arrays, 20, stat="wsum")
+
+
+def _wsum_inputs(n, e, seed, oor=()):
+    """A window with int32 weights 1-5 and int32 thresholds 0-7 (the
+    cores are 0-4, so the predicate falls on both sides)."""
+    src, dst, valid, core, label, _ = _window(n, e, seed, oor)
+    rng = np.random.default_rng(seed + 1)
+    w = rng.integers(1, 6, size=e).astype(np.int32)
+    thresh = rng.integers(0, 8, size=n).astype(np.int32)
+    return src, dst, valid, core, label, w, thresh
+
+
+def _wsum_both(src, dst, valid, core, label, w, thresh, n, **kw):
+    j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
+    t = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+    want = ref.coo_stat(j(src), j(dst), j(valid), j(core), j(label), n,
+                        stat="wsum", aux=j(thresh), edge_w=j(w),
+                        interpret=True)
+    got = K.coo_stat(t(src), t(dst), t(valid), t(core), None, n,
+                     stat="wsum", aux=t(thresh), edge_w=t(w), **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("n,e", [(300, 512), (300, 700), (37, 5)])
+def test_wsum_matches_pallas(n, e):
+    arrays = _wsum_inputs(n, e, seed=n * e)
+    got, want = _wsum_both(*arrays, n)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (n, 1)
+    _eq(got, want)
+    src, dst, valid, core, _, w, thresh = (torch.from_numpy(x)
+                                           for x in arrays)
+    _eq(K.wsum_plain(src, dst, valid, w, core, thresh, n), want)
+
+
+def test_wsum_out_of_range_endpoints_match_pallas():
+    """A gather index in [-n, 0) wraps once, any other outside [0, n)
+    reads 0, and the scatter to an endpoint outside [0, n) is dropped."""
+    n = 40
+    got, want = _wsum_both(*_wsum_inputs(
+        n, 300, seed=5, oor=(n, n + 7, -1, -n, 10 * n, -3 * n)), n)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("n,e", [(0, 16), (10, 0)])
+def test_wsum_empty_window_or_no_vertices(n, e):
+    src, dst, valid, core, label, w, thresh = _wsum_inputs(max(n, 1), e, 1)
+    got, want = _wsum_both(src, dst, valid, core[:n], label[:n], w,
+                           thresh[:n], n)
+    assert tuple(got.shape) == tuple(want.shape) == (n, 1)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("missing", ["edge_w", "aux"])
+def test_wsum_without_inputs_raises_value_error(missing):
+    src, dst, valid, core, label, w, thresh = _wsum_inputs(30, 64, 2)
+    kw = dict(edge_w=w, aux=thresh)
+    kw[missing] = None
+    j = {k: None if v is None else jnp.asarray(v) for k, v in kw.items()}
+    t = {k: None if v is None else torch.from_numpy(v)
+         for k, v in kw.items()}
+    with pytest.raises(ValueError, match="edge_w"):
+        ref.coo_stat(*(jnp.asarray(x) for x in (src, dst, valid, core,
+                                                label)), 30, stat="wsum",
+                     interpret=True, **j)
+    with pytest.raises(ValueError, match="edge_w"):
+        K.coo_stat(*(torch.from_numpy(x) for x in (src, dst, valid, core,
+                                                   label)), 30, stat="wsum",
+                   **t)
+
+
+def test_wsum_unit_weights_at_core_is_mcd():
+    """With unit weights and ``thresh == core`` the weighted support is
+    the mcd count."""
+    src, dst, valid, core, label, w, _ = _wsum_inputs(300, 700, 3)
+    t = torch.from_numpy
+    got = K.coo_stat(t(src), t(dst), t(valid), t(core), None, 300,
+                     stat="wsum", aux=t(core), edge_w=t(np.ones_like(w)))
+    mcd = K.coo_stat(t(src), t(dst), t(valid), t(core), None, 300,
+                     stat="mcd")
+    assert torch.equal(got, mcd)
 
 
 def test_plain_versions_need_no_build():
@@ -167,5 +251,9 @@ def test_plain_versions_need_no_build():
     before = dict(K.LAUNCHES)
     arrays = _window(50, 128, seed=4)[:5]
     _port(K.fused_removal_round, arrays, 50)
+    src, dst, valid, core, _, w, thresh = _wsum_inputs(50, 128, 4)
+    K.coo_stat(*(torch.from_numpy(x) for x in (src, dst, valid, core)),
+               None, 50, stat="wsum", aux=torch.from_numpy(thresh),
+               edge_w=torch.from_numpy(w))
     assert K._lib is None
     assert K.LAUNCHES == before

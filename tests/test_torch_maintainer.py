@@ -194,8 +194,7 @@ def test_empty_batch_stats():
 
 
 @pytest.mark.parametrize("kw,item", [(dict(engine="host"), "items 1-6"),
-                                     (dict(engine="sharded"), "item 8"),
-                                     (dict(weighted=True), "item 7")])
+                                     (dict(engine="sharded"), "item 8")])
 def test_unported_configurations_raise(kw, item):
     g = build_csr(10, np.array([[0, 1], [1, 2]]))
     with pytest.raises(NotImplementedError, match=item):
@@ -203,9 +202,13 @@ def test_unported_configurations_raise(kw, item):
 
 
 def test_insert_weights_raise():
-    tm = CoreMaintainer.from_graph(build_csr(10, np.array([[0, 1]])),
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.apply_batch(insert_edges=[[2, 3]], insert_weights=[4])
+    """``insert_weights`` on an unweighted maintainer raises ValueError,
+    as in the reference, and leaves the state untouched."""
+    g = build_csr(10, np.array([[0, 1]]))
+    jm = JaxMaintainer.from_graph(g)
+    tm = CoreMaintainer.from_graph(g, device="cpu")
+    for m in (jm, tm):
+        with pytest.raises(ValueError, match="weighted=True"):
+            m.apply_batch(insert_edges=[[2, 3]], insert_weights=[4])
     assert tm.live_edges == 1 and torch.equal(tm.core, torch.tensor(
         [1, 1, 0, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32))
