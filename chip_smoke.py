@@ -32,7 +32,29 @@ Phases:
      with random weights; per batch the wall time, round counts and
      ``coo_stat[wsum]`` launches (one per bisection step); at the end
      the cores against a fresh weighted ``from_graph``, the live weight
-     column against a host mirror, and the labels canonical.
+     column against a host mirror, and the labels canonical;
+  6. the kernels of ``kernels/ops.py`` against their plain versions at
+     the shapes phase 7 gives them, timed with CUDA events beside their
+     bounds: ``ell_stat`` (four ops, bit for bit) and ``ell_aggregate``
+     (sum and max, float32 and bfloat16) on the ELL matrix of
+     ``erdos_renyi(2**21, 16_000_000)`` with its core numbers and
+     ``[n, 100]`` features, with ``embedding_bag`` timed beside
+     ``ell_aggregate``; ``fm_interaction`` on DeepFM's
+     ``[262144, 39, 10]`` serving embeddings; ``flash_attention`` at
+     qwen2-7b's heads (28 query, 4 kv, D = 128) on a 1 x 4,096 cut of
+     ``prefill_32k``, causal bfloat16 and full float32, with
+     ``scaled_dot_product_attention`` timed beside it (each library call
+     held once to the plain version too);
+  7. the slice's path, launch counts from 0: (a) DeepFM ``full()``
+     serving with ``use_pallas_fm=True`` at ``serve_p99``, ``serve_bulk``
+     and ``retrieval_cand``, logits against the plain branch; (b) the
+     kernel API on the ER graph's core-maintenance state, ``ell_stat``'s
+     ``count_ge`` / ``count_gt`` equal bit for bit to ``coo_stat``'s
+     ``mcd`` / ``hi`` over the maintainer's slot window, ``mcd >= core``,
+     and ``ell_aggregate`` (float32 and bfloat16) checked as in phase 6;
+     (c) ``flash_attention`` once in each of phase 6's cases. Each row of
+     the kernels line is one kernel instance (an op, a dtype, a mask),
+     and its launches are that instance's.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size.
@@ -76,7 +98,31 @@ PALLAS = "src/repro/kernels/coremaint.py"
 REPLACES = {"coo_stat": f"{PALLAS}:262",
             "fused_removal_round": f"{PALLAS}:350",
             "fused_promotion_stats": f"{PALLAS}:449",
-            "coo_stat[wsum]": f"{PALLAS}:241"}
+            "coo_stat[wsum]": f"{PALLAS}:241",
+            "ell_stat": "src/repro/kernels/segment_ell.py:120",
+            "ell_aggregate": "src/repro/kernels/segment_ell.py:212",
+            "fm_interaction": "src/repro/kernels/fm_interaction.py:35",
+            "flash_attention": "src/repro/kernels/flash_attention.py:85"}
+# phases 6-7: the paper's ER family at the main path's scale (ER, not RMAT:
+# RMAT hubs make the [n, max_deg] ELL matrix unbounded), the ogb_products
+# GNN cell's feature width, DeepFM full() at the recsys cells, and
+# qwen2-7b's attention heads on a 1 x 4,096 cut of prefill_32k (32 x 32,768)
+ER_N = 2**21
+ER_M = 16_000_000
+D_FEAT = 100              # GNN_SHAPES ogb_products d_feat
+FM_BATCH = 262_144        # RECSYS_SHAPES serve_bulk
+ATTN = dict(b=1, h=28, hkv=4, s=4096, d=128)  # configs/qwen2_7b.py heads
+SERVE_CALLS = 5           # timed serving calls a cell, after a warm-up
+FP32_PEAK = 67e12         # float32 FLOP/s outside the tensor cores
+BF16_PEAK = 989e12        # bfloat16 tensor-core FLOP/s, dense
+NO_LIBRARY = {
+    "ell_stat": "no single PyTorch call: count_ge / count_gt compare each "
+                "neighbour with the row's own value, and embedding_bag, "
+                "which gathers and reduces ELL rows, takes no int32 table "
+                "(these are int32 core numbers)",
+    "fm_interaction": "no single PyTorch call computes the FM "
+                      "second-order term",
+}
 MAIN_PATH_KERNELS = ("coo_stat[din]", "coo_stat[same_in]",
                      "fused_removal_round", "fused_promotion_stats")
 WEIGHTED_PATH_KERNELS = ("coo_stat[wsum]",)
@@ -551,6 +597,328 @@ def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> dict:
     return launches
 
 
+def _pad512(x: int) -> int:
+    """The recsys cells' padding of a count to a multiple of 512."""
+    return -(-x // 512) * 512
+
+
+def wall_ms(fn, calls: int, device) -> float:
+    """Median host-clock time of ``fn`` over ``calls`` calls after a
+    warm-up, each ended by a device sync."""
+    fn()
+    sync(device)
+    ts = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+_SOURCES = {"ell_stat": "segment_ell.cu", "ell_aggregate": "segment_ell.cu",
+            "fm_interaction": "fm_interaction.cu",
+            "flash_attention": "flash_attention.cu"}
+
+
+def close(got, want, tol) -> tuple:
+    """``(within tol, max abs err)``; ``tol`` = (rtol, atol), (0, 0) is
+    bit for bit."""
+    import torch
+    rtol, atol = tol
+    if rtol == atol == 0:
+        ok = torch.equal(got, want)
+    else:
+        ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    diff = (got.double() - want.double()).abs()
+    return ok, float(diff.max()) if diff.numel() else 0.0
+
+
+def float_row(name, kname, got, want, tol, run, run_plain, nbytes, ops,
+              peak, iters, device, shape, library=None,
+              library_call=None) -> dict:
+    """Hold a kernel's output to its plain version's within ``tol``, time
+    both with CUDA events, and return its ``kernels`` JSON row; ``name``
+    is also its launch counter's key. ``library`` is one PyTorch call
+    (``library_call`` names it) computing the same function: it is held
+    once to the plain version within ``tol`` and timed as the
+    yardstick."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"phase 6 {name}: dtype/shape")
+    ok, err = close(got, want, tol)
+    check(ok, f"phase 6 {name}: max abs err {err} over rtol/atol {tol}")
+    if library is not None:
+        ok, lib_err = close(library(), want, tol)
+        log(f"phase 6 {name}: {library_call} max abs err to the plain "
+            f"version {lib_err}")
+        check(ok, f"phase 6 {name}: {library_call} differs from the plain "
+              f"version by {lib_err} over rtol/atol {tol}")
+    ms = time_ms(run, iters, device)
+    plain_ms = time_ms(run_plain, max(1, iters // 4), device)
+    lib_ms = time_ms(library, iters, device) if library else None
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    log(f"phase 6 {name}: {shape} max_abs_err={err} (rtol/atol {tol}) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+        f"bytes={nbytes} ops={ops} bound_ms={max(t_bytes, t_ops):.4f}")
+    return dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/csrc/{_SOURCES[kname]}",
+        replaces=REPLACES[kname], launches=0, max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=lib_ms,
+        library_note=library_call if library else NO_LIBRARY[kname],
+    )
+
+
+def phase_ell_kernels(device, nbrs, core, feats, iters: int) -> list:
+    """``ell_stat`` and ``ell_aggregate`` against their plain versions on
+    the ER graph's ELL matrix, core numbers and features."""
+    import torch
+    from repro_torch.kernels import segment_ell as SE
+
+    n, d = nbrs.shape
+    nnz = int((nbrs < n).sum())
+    shape = f"nbrs=[{n}, {d}] neighbours={nnz}"
+    rows = []
+    tag = {torch.int32: "i32", torch.int64: "i64"}[core.dtype]
+    for op in ("count_ge", "count_gt", "sum", "max"):
+        def run(op=op):
+            return SE.ell_stat(nbrs, core, core, op)
+
+        def plain(op=op):
+            return SE.ell_stat_plain(nbrs, core, core, op)
+        # nbrs, the core numbers (vals and self_vals, one tensor) and the
+        # output once; a compare and an add per neighbour
+        rows.append(float_row(
+            f"ell_stat[{op},{tag}]", "ell_stat", run(), plain(), (0, 0),
+            run, plain, 4 * n * d + 2 * core.element_size() * n, 2 * nnz,
+            INT32_OPS_PER_S, iters, device, shape))
+    for dtype, tag, tsum in ((torch.float32, "f32", (1e-5, 1e-5)),
+                             (torch.bfloat16, "bf16", (2e-2, 1e-2))):
+        fe = feats.to(dtype)
+        size = fe.element_size()
+        # the yardstick's table: feats with a zero row n, the pad id
+        fe_ext = torch.cat([fe, fe.new_zeros((1, fe.shape[1]))])
+        for op in ("sum", "max"):
+            def run(op=op, fe=fe):
+                return SE.ell_aggregate(nbrs, fe, op)
+
+            def plain(op=op, fe=fe):
+                return SE.ell_aggregate_plain(nbrs, fe, op)
+
+            def library(op=op, fe_ext=fe_ext):
+                # each row of nbrs a fixed-length bag; pad entries (id n)
+                # left out, an empty bag 0 (this graph has no negative
+                # ids, and randn features never lose a max to -1e30)
+                return torch.nn.functional.embedding_bag(
+                    nbrs, fe_ext, mode=op, padding_idx=n)
+            # nbrs, feats and the output once; an add or a max per
+            # neighbour and feature
+            rows.append(float_row(
+                f"ell_aggregate[{op},{tag}]", "ell_aggregate", run(),
+                plain(), tsum if op == "sum" else (0, 0), run, plain,
+                4 * n * d + 2 * size * fe.numel(), nnz * fe.shape[1],
+                FP32_PEAK, iters, device, f"{shape} feats={list(fe.shape)} "
+                f"{tag}", library=library,
+                library_call="embedding_bag over feats with a zero row "
+                             "appended, padding_idx=n"))
+        del fe, fe_ext
+    return rows
+
+
+def phase_fm_kernel(device, emb, iters: int) -> list:
+    """``fm_interaction`` against its plain version on DeepFM's
+    serve_bulk embeddings (float32, rtol/atol 1e-4)."""
+    from repro_torch.kernels import fm_interaction as FM
+
+    def run():
+        return FM.fm_interaction(emb)
+
+    def plain():
+        return FM.fm_interaction_plain(emb)
+    # emb read once, the output written once; an add and a multiply-add
+    # per element
+    return [float_row("fm_interaction[f32]", "fm_interaction", run(),
+                      plain(), (1e-4, 1e-4), run, plain,
+                      emb.element_size() * (emb.numel() + emb.shape[0]),
+                      3 * emb.numel(), FP32_PEAK, iters, device,
+                      f"emb={list(emb.shape)} {emb.dtype}")]
+
+
+def attention_inputs(device, dtype, seed: int):
+    import torch
+    a = ATTN
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((a["b"], a["h"], a["s"], a["d"]), generator=gen,
+                    device=device).to(dtype)
+    k, v = (torch.randn((a["b"], a["hkv"], a["s"], a["d"]), generator=gen,
+                        device=device).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def phase_attention_kernel(device, iters: int):
+    """``flash_attention`` against its plain version at qwen2-7b's heads
+    on the prefill cut, causal bfloat16 (3e-2) and full float32 (2e-3),
+    with ``scaled_dot_product_attention`` as the library yardstick.
+    Returns the rows and, by row name, each case's inputs and output."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    rows, keep = [], {}
+    for causal, dtype, tol, peak in (
+            (True, torch.bfloat16, 3e-2, BF16_PEAK),
+            (False, torch.float32, 2e-3, FP32_PEAK)):
+        q, k, v = attention_inputs(device, dtype, seed=int(causal))
+
+        def run(q=q, k=k, v=v, causal=causal):
+            return FA.flash_attention(q, k, v, causal=causal)
+
+        def plain(q=q, k=k, v=v, causal=causal):
+            return FA.flash_attention_plain(q, k, v, causal=causal)
+
+        def library(q=q, k=k, v=v, causal=causal):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+        s, d = q.shape[2], q.shape[3]
+        pairs = s * (s + 1) // 2 if causal else s * s
+        got = run()
+        name = FA.launch_key(causal, dtype, d)
+        rows.append(float_row(
+            name, "flash_attention", got, plain(), (tol, tol), run, plain,
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            4 * q.shape[0] * q.shape[1] * d * pairs, peak, iters, device,
+            f"q={list(q.shape)} kv={list(k.shape)} causal={causal} "
+            f"{dtype}", library=library,
+            library_call="scaled_dot_product_attention"))
+        rows[-1]["reduced"] = ("prefill_32k's 32 x 32,768 cut to "
+                               f"{q.shape[0]} x {s}")
+        keep[name] = (q, k, v, causal, got)
+    return rows, keep
+
+
+def phase_deepfm(device) -> None:
+    """DeepFM ``full()`` serving on the card with ``use_pallas_fm=True``
+    at the recsys serve and retrieval cells, ids made as the reference's
+    ``launch/steps.py::_recsys_cell`` makes them; logits held to the
+    plain branch (rtol/atol 1e-4, TF32 off), retrieval scores to a
+    float64 recomputation."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import deepfm as deepfm_cfg
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.kernels import fm_interaction as FM
+    from repro_torch.models import recsys
+
+    cfg = deepfm_cfg.full()
+    cfg_fm = dataclasses.replace(cfg, use_pallas_fm=True)
+    t0 = time.perf_counter()
+    model = recsys.deepfm_init(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    sync(device)
+    log(f"phase 7a DeepFM full(): vocab_total={cfg.vocab_total} "
+        f"embed_dim={cfg.embed_dim} mlp={cfg.mlp_dims} "
+        f"n_params={cfg.n_params} init {time.perf_counter() - t0:.1f} s")
+    for cell in RECSYS_SHAPES:
+        if cell.kind not in ("serve", "retrieval"):
+            continue  # training DeepFM is ROADMAP Queue 1 item 13
+        b = cell.params["batch"]
+        rng = np.random.default_rng(0)
+        ids = torch.from_numpy(rng.integers(
+            0, cfg.rows_per_field, size=(b, cfg.n_sparse)).astype(
+                np.int32)).to(device)
+        with torch.no_grad():
+            if cell.kind == "serve":
+                before = FM.LAUNCHES["fm_interaction[f32]"]
+                got = recsys.deepfm_forward(cfg_fm, model, ids)
+                check(FM.LAUNCHES["fm_interaction[f32]"] == before + 1,
+                      f"phase 7a {cell.name}: fm_interaction not launched")
+                want = recsys.deepfm_forward(cfg, model, ids)
+                check(got.shape == (b,) and got.dtype == torch.float32
+                      and bool(torch.isfinite(got).all()),
+                      f"phase 7a {cell.name}: logits shape/dtype/finite")
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+                      f"phase 7a {cell.name}: use_pallas_fm logits differ "
+                      f"from the plain branch by {err}")
+                ms = wall_ms(lambda: recsys.deepfm_forward(cfg_fm, model,
+                                                           ids),
+                             SERVE_CALLS, device)
+                ms_plain = wall_ms(lambda: recsys.deepfm_forward(
+                    cfg, model, ids), SERVE_CALLS, device)
+                _, emb = recsys._field_embeddings(cfg, model, ids)
+                # the kernel timed alone is a measurement, not the path
+                path_launches = dict(FM.LAUNCHES)
+                fm_ms = time_ms(lambda: FM.fm_interaction(emb), ITERS,
+                                device)
+                FM.LAUNCHES.update(path_launches)
+                log(f"phase 7a {cell.name}: batch={b} logits max abs err "
+                    f"to the plain branch {err} wall_ms={ms:.4f} "
+                    f"(plain branch {ms_plain:.4f}) fm_kernel_ms="
+                    f"{fm_ms:.4f} fm_share={fm_ms / ms:.4f}")
+            else:
+                nc = _pad512(cell.params["n_candidates"])
+                cand = torch.from_numpy(rng.normal(
+                    size=(nc, cfg.embed_dim)).astype(np.float32)).to(device)
+                got = recsys.retrieval_score(cfg_fm, model, ids, cand)
+                _, emb = recsys._field_embeddings(cfg, model, ids)
+                want = emb.double().sum(1) @ cand.double().T
+                err = float((got.double() - want).abs().max())
+                check(got.shape == (b, nc) and bool(torch.isfinite(got).all())
+                      and torch.allclose(got.double(), want, rtol=1e-4,
+                                         atol=1e-4),
+                      f"phase 7a {cell.name}: scores vs float64 ({err})")
+                ms = wall_ms(lambda: recsys.retrieval_score(
+                    cfg_fm, model, ids, cand), SERVE_CALLS, device)
+                log(f"phase 7a {cell.name}: 1 query x {nc} candidates "
+                    f"max abs err to float64 {err} wall_ms={ms:.4f}")
+    del model
+
+
+def phase_api_on_core_state(device, me, nbrs, feats) -> None:
+    """The kernel API on the ER graph's core-maintenance state:
+    ``ell_stat`` ``count_ge`` / ``count_gt`` equal bit for bit to
+    ``coo_stat``'s ``mcd`` / ``hi`` over the maintainer's slot window,
+    ``mcd >= core`` everywhere, ``sum`` / ``max`` against the plain
+    version, and ``ell_aggregate`` (float32 and bfloat16) as in phase
+    6."""
+    import torch
+    from repro_torch.kernels import coremaint as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_ell as SE
+
+    w = me._window(0)
+    src, dst, valid = me.src[:w], me.dst[:w], me.valid[:w]
+    core, n = me.core, me.n
+    mcd = K.coo_stat(src, dst, valid, core, None, n, "mcd")[:, 0]
+    hi = K.coo_stat(src, dst, valid, core, me.label, n, "mcd_hi_dout")[:, 1]
+    ge = ops.ell_stat_op(nbrs, core, core, "count_ge")
+    gt = ops.ell_stat_op(nbrs, core, core, "count_gt")
+    check(torch.equal(ge, mcd), "phase 7b: ell_stat count_ge != coo_stat mcd")
+    check(torch.equal(gt, hi), "phase 7b: ell_stat count_gt != coo_stat hi")
+    check(bool((ge >= core).all()), "phase 7b: mcd < core somewhere")
+    for op in ("sum", "max"):
+        check(torch.equal(ops.ell_stat_op(nbrs, core, core, op),
+                          SE.ell_stat_plain(nbrs, core, core, op)),
+              f"phase 7b: ell_stat {op} != plain")
+    for dtype, tsum in ((torch.float32, (1e-5, 1e-5)),
+                        (torch.bfloat16, (2e-2, 1e-2))):
+        fe = feats.to(dtype)
+        for op in ("sum", "max"):
+            ok, err = close(ops.ell_aggregate_op(nbrs, fe, op),
+                            SE.ell_aggregate_plain(nbrs, fe, op),
+                            tsum if op == "sum" else (0, 0))
+            check(ok, f"phase 7b: ell_aggregate {op} {dtype} differs from "
+                  f"the plain version by {err}")
+        del fe
+    log(f"phase 7b: over the slot window (E={w}, n={n}) ell_stat count_ge "
+        f"== coo_stat mcd and count_gt == coo_stat hi bit for bit, "
+        f"mcd >= core, sum/max and ell_aggregate sum/max (float32, "
+        f"bfloat16) == plain")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -559,14 +927,17 @@ def main() -> int:
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.graph.generators import rmat
     from repro_torch.graph.stream import mixed_stream
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels import coremaint as K
 
     device = "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 7a's tolerance
     # ---- phase 1 --------------------------------------------------------
     t0 = time.perf_counter()
-    lib = K.build(verbose=True)
-    K._library()
-    log(f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    lib = KB.build(verbose=True)
+    KB.library()
+    log(f"phase 1 build: {lib.name} from {len(KB.sources())} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
     smi = nvidia_smi_line()
     log(f"phase 1 card: {smi} | {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -627,6 +998,68 @@ def main() -> int:
         r["launches"] = wlaunches[r["name"]]
         r["status"] = "on the weighted main path"
     rows += wrows
+    del mw
+    torch.cuda.empty_cache()
+
+    # ---- phases 6-7 set-up: the ER graph, its ELL matrix, its cores -----
+    from repro_torch.graph.csr import ell_from_csr
+    from repro_torch.graph.generators import erdos_renyi
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fm_interaction as FM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_ell as SE
+
+    t0 = time.perf_counter()
+    ge = erdos_renyi(ER_N, ER_M, seed=0)
+    ell = ell_from_csr(ge)
+    log(f"phase 6 graph: erdos_renyi({ER_N}, {ER_M}, seed=0) keeps "
+        f"m={ge.m}, ELL max_deg={ell.max_deg} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    me = CoreMaintainer.from_graph(ge, init="jax-peel", device=device)
+    nbrs = torch.from_numpy(ell.nbrs).to(device)
+    del ell
+    gen = torch.Generator(device=device).manual_seed(0)
+    feats = torch.randn((ge.n, D_FEAT), generator=gen, device=device)
+    emb = torch.randn((FM_BATCH, 39, 10), generator=gen, device=device)
+    sync(device)
+    log(f"phase 6 from_graph(init='jax-peel'): kmax={int(me.core.max())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 6 --------------------------------------------------------
+    t0 = time.perf_counter()
+    new_rows = phase_ell_kernels(device, nbrs, me.core, feats, ITERS)
+    new_rows += phase_fm_kernel(device, emb, ITERS)
+    del emb
+    attn_rows, attn_cases = phase_attention_kernel(device, ITERS)
+    new_rows += attn_rows
+    log(f"phase 6: {len(new_rows)} rows in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 7: the slice's path, launch counts from 0 -----------------
+    for mod in (SE, FM, FA):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    phase_deepfm(device)
+    phase_api_on_core_state(device, me, nbrs, feats)
+    for name, (q, k, v, causal, want) in attn_cases.items():
+        with torch.no_grad():
+            got = ops.flash_attention_op(q, k, v, causal=causal)
+        check(torch.equal(got, want),
+              f"phase 7c: flash_attention_op != phase 6's {name} output")
+        log(f"phase 7c: flash_attention_op at q={list(q.shape)} "
+            f"kv={list(k.shape)} {name} == phase 6's output")
+    del attn_cases
+    new_launches = {**SE.LAUNCHES, **FM.LAUNCHES, **FA.LAUNCHES}
+    log(f"phase 7 launches="
+        f"{json.dumps({k: c for k, c in new_launches.items() if c})} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for r in new_rows:
+        # every row is one kernel instance, and its name is its counter
+        r["launches"] = new_launches[r["name"]]
+        check(r["launches"] > 0,
+              f"phase 7: kernel {r['name']} was never launched")
+        r["status"] = "on the slice's path (phase 7)"
+    rows += new_rows
 
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -56,6 +56,7 @@ def main() -> int:
 
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.graph.generators import rmat
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels import coremaint as K
 
     smi = subprocess.run(
@@ -65,7 +66,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    K.build()
+    KB.build()
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGES, seed=0)
     if args.weighted:

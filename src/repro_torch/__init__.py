@@ -7,7 +7,9 @@ module for module like it (``repro_torch/core/engine.py`` mirrors
 int64, so nothing global has to be switched on.
 
 Entry points run on the card unless the caller passes
-``device="cpu"``. The hand-written Hopper kernels live in
-``csrc/coremaint.cu`` and build on first use (``kernels/coremaint.py``).
+``device="cpu"`` or CPU tensors. The hand-written Hopper kernels live in
+``csrc/*.cu`` and build on first use into one library
+(``kernels/build.py``); ``kernels/ops.py`` is the kernel API and
+``models/recsys.py`` the DeepFM model that serves through it.
 """
 __version__ = "1.0.0"

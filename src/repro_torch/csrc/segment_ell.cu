@@ -1,0 +1,287 @@
+// Hopper (sm_90a) kernels for per-vertex reductions over an ELL neighbour
+// matrix nbrs [n, D] (int32, pad = n).
+//
+// Replaces the two Pallas TPU kernels of src/repro/kernels/segment_ell.py:
+//   ell_stat (_kernel, pallas_call at line 120)           -> ell_stat_kernel
+//   ell_aggregate (_agg_kernel, pallas_call at line 212)  -> ell_aggregate_kernel
+//
+// Design. The TPU kernels walk a (n/BN, D/BD) grid in order and carry the
+// running reduction, and a neighbour count that pins max of an empty row
+// to 0, from one D block to the next in the output block. Hopper's blocks
+// run in no order, so here one warp owns a row and loops over all of D
+// itself: the reduction lives in registers, with no second grid dimension,
+// no atomics and no count array.
+//   ell_stat: the 32 lanes read the row's ids together (coalesced) and
+//   each gathers vals[id]. For the counts, max and integer sums each lane
+//   folds into its own partial and a warp shuffle tree combines the lanes
+//   (exact in any order: integer sums wrap). A float32 sum instead folds
+//   each 32-column chunk in column order (the gathered values broadcast
+//   lane by lane with shuffles), so it adds in the plain version's order
+//   and is bit for bit its result on any data. The serial fold is slow:
+//   run for int32 too, it took 0.72 ms against the tree's 0.35 ms on the
+//   ELL matrix of erdos_renyi(2**21, 16M) (chip_smoke.py, NVIDIA H100
+//   80GB HBM3, 700.00 W), so integer sums keep the tree.
+//   ell_aggregate: the lanes lie across F instead (kPerLane features each,
+//   so a warp covers 32 * kPerLane columns per pass), every lane reads the
+//   same id (one broadcast load), and the warp gathers a contiguous
+//   feature row, so the [n, F] reads are coalesced.
+//
+// Semantics kept from the reference (segment_ell.py and kernels/ref.py):
+//   * an id is a neighbour when id < n; a negative id is a neighbour too
+//     and wraps once over the n + 1 long value vector (jnp.take), so -1
+//     reads the zero sentinel row; an id still outside [0, n] reads 0
+//     (take's fill_value);
+//   * counts and integer sums wrap to the value type, as the kernel's cast
+//     of its int64 partial back to vals' dtype does (unsigned arithmetic
+//     here, so the wrap is defined);
+//   * max folds the sentinel (-(2**30) for ell_stat, -1e30 for
+//     ell_aggregate) in wherever the row holds a pad entry, and a row with
+//     no neighbour returns 0; NaN propagates as jnp.max does;
+//   * ell_aggregate's sum accumulates in float32 and rounds once to the
+//     output type (the Pallas kernel rounds a bf16 sum at every 64-column
+//     D block; the reference oracle, like this kernel, once).
+//
+// Bound. ell_stat: the nbrs matrix (4 B an entry), vals and self_vals once
+// and the output once; the vals gathers are random 4 B reads that the 50 MB
+// L2 mostly serves (vals of a 2M-vertex graph is 8 MB). ell_aggregate: the
+// nbrs matrix, feats and the output once; its real traffic is one
+// F-wide feature row gathered per neighbour, which is what limits it.
+//
+// C interface for ctypes: every function returns cudaGetLastError() of its
+// launch; the caller raises when it is not 0.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+enum Op { COUNT_GE = 0, COUNT_GT = 1, SUM = 2, MAX = 3 };
+enum DType { I32 = 0, I64 = 1, F32 = 2, BF16 = 3 };
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr long long kMaxBlocks = 132LL * 32;
+constexpr int kPerLane = 4;  // ell_aggregate: features a lane holds
+
+// the accumulator of a sum: wrapping unsigned for the integer types
+template <typename T> struct Acc { using type = T; };
+template <> struct Acc<int> { using type = unsigned int; };
+template <> struct Acc<long long> { using type = unsigned long long; };
+
+template <typename T> __device__ __forceinline__ bool is_nan(T) { return false; }
+template <> __device__ __forceinline__ bool is_nan<float>(float x) { return x != x; }
+
+// jnp.max: NaN wins, then the larger value
+template <typename T>
+__device__ __forceinline__ T max_nan(T a, T b) {
+  return (is_nan(a) || a > b) ? a : (is_nan(b) || b > a) ? b : a;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// the row of id in the (n + 1)-row extended value array, or -1 for the
+// zero fill (the sentinel row n reads 0 too)
+__device__ __forceinline__ long long ext_row(int id, long long n) {
+  long long r = id < 0 ? (long long)id + n + 1 : (long long)id;
+  return (r >= 0 && r < n) ? r : -1;
+}
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+ell_stat_kernel(const int* __restrict__ nbrs, const T* __restrict__ vals,
+                const T* __restrict__ self_vals, T* __restrict__ out,
+                long long n, long long D) {
+  using A = typename Acc<T>::type;
+  const int lane = threadIdx.x & 31;
+  const long long warp0 = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long stride = (long long)gridDim.x * kWarps;
+  const T neg = T(-(1 << 30));
+  for (long long v = warp0; v < n; v += stride) {
+    const int* row = nbrs + v * D;
+    if constexpr (OP == SUM && std::is_floating_point<T>::value) {
+      // column order: every lane adds the chunk's 32 values in j order
+      A sum = A(0);
+      for (long long j0 = 0; j0 < D; j0 += 32) {
+        const long long j = j0 + lane;
+        A x = A(0);
+        if (j < D) {
+          const int id = row[j];
+          const long long r = (long long)id < n ? ext_row(id, n) : -1;
+          if (r >= 0) x = (A)vals[r];
+        }
+        const int m = D - j0 < 32 ? (int)(D - j0) : 32;
+        for (int s = 0; s < m; ++s) sum += __shfl_sync(0xffffffffu, x, s);
+      }
+      if (lane == 0) out[v] = (T)sum;
+      continue;
+    }
+    const T mine = self_vals[v];
+    unsigned cnt = 0;  // neighbours (count ops: matching neighbours)
+    A sum = A(0);
+    T mx = neg;
+    bool pad = false, any = false, first = true;
+    for (long long j = lane; j < D; j += 32) {
+      const int id = row[j];
+      const bool valid = (long long)id < n;
+      if (!valid) {
+        pad = true;
+        continue;
+      }
+      const long long r = ext_row(id, n);
+      const T x = r >= 0 ? vals[r] : T(0);
+      if (OP == COUNT_GE) cnt += x >= mine;
+      if (OP == COUNT_GT) cnt += x > mine;
+      if (OP == SUM) sum += (A)x;
+      if (OP == MAX) {
+        mx = first ? x : max_nan(mx, x);
+        first = false;
+        any = true;
+      }
+    }
+    if (OP == MAX) {
+      // fold the lanes: a lane with neither a neighbour nor a pad entry
+      // holds nothing; the sentinel joins wherever the row has a pad entry
+      bool has = any;
+      for (int o = 16; o > 0; o >>= 1) {
+        const T m2 = __shfl_xor_sync(0xffffffffu, mx, o);
+        const bool h2 = __shfl_xor_sync(0xffffffffu, (int)has, o);
+        mx = !has ? m2 : !h2 ? mx : max_nan(mx, m2);
+        has = has || h2;
+      }
+      const bool row_pad = __any_sync(0xffffffffu, pad);
+      if (lane == 0) {
+        T res = T(0);
+        if (has) res = row_pad ? max_nan(mx, neg) : mx;
+        out[v] = res;
+      }
+    } else if (OP == SUM) {
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) out[v] = (T)sum;
+    } else {
+      for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+      if (lane == 0) out[v] = (T)(A)cnt;
+    }
+  }
+}
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+ell_aggregate_kernel(const int* __restrict__ nbrs, const T* __restrict__ feats,
+                     T* __restrict__ out, long long n, long long D,
+                     long long F) {
+  const int lane = threadIdx.x & 31;
+  const long long warp0 = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long stride = (long long)gridDim.x * kWarps;
+  const float neg = to_f(from_f<T>(-1e30f));  // the sentinel in T
+  for (long long v = warp0; v < n; v += stride) {
+    const int* row = nbrs + v * D;
+    for (long long f0 = 0; f0 < F; f0 += 32 * kPerLane) {
+      float acc[kPerLane];
+      bool pad = false, any = false;
+      for (int k = 0; k < kPerLane; ++k) acc[k] = OP == SUM ? 0.f : neg;
+      for (long long j = 0; j < D; ++j) {
+        const int id = row[j];  // one broadcast load for the warp
+        if ((long long)id >= n) {
+          pad = true;
+          continue;
+        }
+        const long long r = ext_row(id, n);
+        const T* src = feats + r * F;
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const long long f = f0 + lane + 32 * k;
+          const float x = (f < F && r >= 0) ? to_f(src[f]) : 0.f;
+          if (OP == SUM) acc[k] += x;
+          else acc[k] = any ? max_nan(acc[k], x) : x;
+        }
+        any = true;
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const long long f = f0 + lane + 32 * k;
+        if (f >= F) continue;
+        float res = acc[k];
+        if (OP == MAX) res = !any ? 0.f : pad ? max_nan(res, neg) : res;
+        out[v * F + f] = from_f<T>(res);
+      }
+    }
+  }
+}
+
+unsigned blocks_for(long long rows) {
+  long long b = (rows + kWarps - 1) / kWarps;
+  if (b > kMaxBlocks) b = kMaxBlocks;
+  return (unsigned)(b < 1 ? 1 : b);
+}
+
+template <typename T>
+int launch_stat(const void* nbrs, const void* vals, const void* self_vals,
+                void* out, long long n, long long D, int op, cudaStream_t st) {
+  auto nb = (const int*)nbrs;
+  auto va = (const T*)vals;
+  auto sv = (const T*)self_vals;
+  auto o = (T*)out;
+  const unsigned g = blocks_for(n);
+  switch (op) {
+    case COUNT_GE: ell_stat_kernel<T, COUNT_GE><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
+    case COUNT_GT: ell_stat_kernel<T, COUNT_GT><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
+    case SUM: ell_stat_kernel<T, SUM><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
+    case MAX: ell_stat_kernel<T, MAX><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_agg(const void* nbrs, const void* feats, void* out, long long n,
+               long long D, long long F, int op, cudaStream_t st) {
+  auto nb = (const int*)nbrs;
+  auto fe = (const T*)feats;
+  auto o = (T*)out;
+  const unsigned g = blocks_for(n);
+  switch (op) {
+    case SUM: ell_aggregate_kernel<T, SUM><<<g, kThreads, 0, st>>>(nb, fe, o, n, D, F); break;
+    case MAX: ell_aggregate_kernel<T, MAX><<<g, kThreads, 0, st>>>(nb, fe, o, n, D, F); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out [n] in vals' type; n > 0 and D > 0 (the wrapper short-circuits the
+// empty cases). dtype: I32, I64 or F32.
+int ell_stat(const void* nbrs, const void* vals, const void* self_vals,
+             void* out, long long n, long long D, int op, int dtype,
+             void* stream) {
+  auto st = (cudaStream_t)stream;
+  switch (dtype) {
+    case I32: return launch_stat<int>(nbrs, vals, self_vals, out, n, D, op, st);
+    case I64: return launch_stat<long long>(nbrs, vals, self_vals, out, n, D, op, st);
+    case F32: return launch_stat<float>(nbrs, vals, self_vals, out, n, D, op, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out [n, F] in feats' type; n > 0 and D > 0. dtype: F32 or BF16.
+int ell_aggregate(const void* nbrs, const void* feats, void* out, long long n,
+                  long long D, long long F, int op, int dtype, void* stream) {
+  auto st = (cudaStream_t)stream;
+  switch (dtype) {
+    case F32: return launch_agg<float>(nbrs, feats, out, n, D, F, op, st);
+    case BF16: return launch_agg<__nv_bfloat16>(nbrs, feats, out, n, D, F, op, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -2,14 +2,16 @@
 stream replay.
 
 The numpy part of the reference's ``graph/csr.py`` (``CSRGraph``,
-``build_csr``, ``add_edges_csr``, ``remove_edges_csr``), copied so the
-port never imports the JAX package. The device-side dynamic edge slots
-live in ``core.api.CoreMaintainer`` as torch tensors; the ELL layout
-comes with the GNN stack (ROADMAP Queue 1 item 10).
+``build_csr``, ``add_edges_csr``, ``remove_edges_csr``, and the padded
+neighbour matrix ``ELLGraph`` / ``ell_from_csr`` that the ELL kernels of
+``kernels/segment_ell.py`` read), copied so the port never imports the
+JAX package. The device-side dynamic edge slots live in
+``core.api.CoreMaintainer`` as torch tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -89,3 +91,36 @@ def add_edges_csr(g: CSRGraph, edges: np.ndarray) -> CSRGraph:
     cur = g.edge_array()
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     return build_csr(g.n, np.concatenate([cur, edges], axis=0))
+
+
+# ---------------------------------------------------------------------------
+# ELL padded neighbor matrix
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ELLGraph:
+    """Padded neighbor lists: ``nbrs[v, i]`` is the i-th neighbor of v.
+
+    Padding entries hold ``n`` (one-past-last vertex id) so gathers can index
+    a sentinel row appended to per-vertex value arrays.
+    """
+
+    n: int
+    max_deg: int
+    nbrs: np.ndarray  # [n, max_deg] int32
+    deg: np.ndarray  # [n] int32
+
+
+def ell_from_csr(g: CSRGraph, max_deg: Optional[int] = None) -> ELLGraph:
+    """The reference's arrays exactly (pad = n, neighbours in CSR order,
+    ``max_deg`` defaults to the graph's, at least 1), written in one
+    scatter instead of a Python loop over the vertices."""
+    deg = g.degrees().astype(np.int32)
+    md = int(deg.max()) if deg.size else 0
+    max_deg = max_deg or max(md, 1)
+    if md > max_deg:
+        raise ValueError(f"max_deg {max_deg} < graph max degree {md}")
+    nbrs = np.full((g.n, max_deg), g.n, dtype=np.int32)
+    row = np.repeat(np.arange(g.n, dtype=np.int64), deg)
+    col = np.arange(row.shape[0], dtype=np.int64) - g.indptr[row]
+    nbrs[row, col] = g.indices[: row.shape[0]]
+    return ELLGraph(n=g.n, max_deg=max_deg, nbrs=nbrs, deg=deg)

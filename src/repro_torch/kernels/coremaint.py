@@ -34,23 +34,18 @@ about 9 B a slot; wsum adds the 4 B weight), the vertex state read once
 and the output written once. On power-law (RMAT) graphs the random endpoint gathers and the
 atomic contention at hub vertices are the likely limit.
 
-The library is built with ``nvcc`` from the package's own source on
-first use, into ``build/repro_torch/`` at the checkout root (or
-``$REPRO_TORCH_BUILD_DIR``), and loaded with ``ctypes``. A missing
-``nvcc``, a failed build or a failed launch raises ``RuntimeError``.
+The kernels build on first use into the package's one CUDA library
+(``build.py``). A missing ``nvcc``, a failed build or a failed launch
+raises ``RuntimeError``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
+
+from . import build as B
 
 # stat name -> (kernel enum in csrc/coremaint.cu, packed output columns)
 _STATS = {
@@ -70,90 +65,19 @@ _LABEL_STATS = ("mcd_hi_dout", "hi_dout", "din")
 LAUNCHES = {**{f"coo_stat[{s}]": 0 for s in (*_STATS, "wsum")},
             "fused_removal_round": 0, "fused_promotion_stats": 0}
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "coremaint.cu"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_lib: Optional[ctypes.CDLL] = None
+# the C functions of csrc/coremaint.cu and their argument types
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+B.register({
+    "coremaint_stat": [_P] * 7 + [_I64, _I64, ctypes.c_int, _P],
+    "coremaint_removal_decide": [_P] * 4 + [_I64, _P],
+    "coremaint_promotion_decide": [_P] * 3 + [_I64, _P],
+    "coremaint_wsum": [_P] * 7 + [_I64, _I64, _P],
+})
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
-        "repro_torch build from source on first use"
-    )
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/coremaint.cu`` into a shared library named by the
-    hash of its source and flags (a rebuilt source never loads a stale
-    library). Returns the library's path; builds only when missing."""
-    text = _SOURCE.read_bytes()
-    tag = hashlib.sha256(text + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out_dir = build_dir()
-    out = out_dir / f"libcoremaint_{tag[:16]}.so"
-    if out.exists():
-        return out
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.coremaint_stat.argtypes = [p, p, p, p, p, p, p, i64, i64,
-                                       ctypes.c_int, p]
-        lib.coremaint_removal_decide.argtypes = [p, p, p, p, i64, p]
-        lib.coremaint_promotion_decide.argtypes = [p, p, p, i64, p]
-        lib.coremaint_wsum.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
-        for fn in (lib.coremaint_stat, lib.coremaint_removal_decide,
-                   lib.coremaint_promotion_decide, lib.coremaint_wsum):
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def _u8(mask: torch.Tensor) -> torch.Tensor:
@@ -306,13 +230,11 @@ def _launch_stat(src, dst, valid, core, label, n, stat, aux):
     # converted temporary freed earlier could hand its block to the next
     valid8 = _u8(valid)
     aux8 = _u8(aux) if aux is not None else None
-    rc = _library().coremaint_stat(
-        src.data_ptr(), dst.data_ptr(), valid8.data_ptr(), core.data_ptr(),
-        label.data_ptr() if label is not None else None,
-        aux8.data_ptr() if aux8 is not None else None, out.data_ptr(),
-        src.shape[0], n, code, _stream(),
-    )
-    _check(rc, f"coremaint_stat[{stat}]")
+    B.launch("coremaint_stat",
+             src.data_ptr(), dst.data_ptr(), valid8.data_ptr(),
+             core.data_ptr(), label.data_ptr() if label is not None else None,
+             aux8.data_ptr() if aux8 is not None else None, out.data_ptr(),
+             src.shape[0], n, code)
     return out
 
 
@@ -340,12 +262,10 @@ def _wsum(src, dst, valid, core, label, n, aux, edge_w):
     valid8 = _u8(valid)
     w32 = edge_w.to(torch.int32)
     thresh = aux.to(torch.int32)
-    rc = _library().coremaint_wsum(
-        src.data_ptr(), dst.data_ptr(), valid8.data_ptr(), w32.data_ptr(),
-        core.data_ptr(), thresh.data_ptr(), out.data_ptr(), src.shape[0], n,
-        _stream(),
-    )
-    _check(rc, "coremaint_wsum")
+    B.launch("coremaint_wsum",
+             src.data_ptr(), dst.data_ptr(), valid8.data_ptr(),
+             w32.data_ptr(), core.data_ptr(), thresh.data_ptr(),
+             out.data_ptr(), src.shape[0], n)
     LAUNCHES["coo_stat[wsum]"] += 1
     return out
 
@@ -403,11 +323,8 @@ def fused_removal_round(src: torch.Tensor, dst: torch.Tensor,
                          None)
     new_core = torch.empty_like(core)
     drop = torch.empty(n, dtype=torch.bool, device=src.device)
-    rc = _library().coremaint_removal_decide(
-        stats.data_ptr(), core.data_ptr(), new_core.data_ptr(),
-        drop.data_ptr(), n, _stream(),
-    )
-    _check(rc, "coremaint_removal_decide")
+    B.launch("coremaint_removal_decide", stats.data_ptr(),
+             core.data_ptr(), new_core.data_ptr(), drop.data_ptr(), n)
     LAUNCHES["fused_removal_round"] += 2
     return stats[:, 0], stats[:, 1], stats[:, 2], new_core, drop
 
@@ -430,9 +347,7 @@ def fused_promotion_stats(src: torch.Tensor, dst: torch.Tensor,
         return fused_promotion_stats_plain(src, dst, valid, core, label, n)
     stats = _launch_stat(src, dst, valid, core, label, n, "hi_dout", None)
     viol = torch.empty(n, dtype=torch.bool, device=src.device)
-    rc = _library().coremaint_promotion_decide(
-        stats.data_ptr(), core.data_ptr(), viol.data_ptr(), n, _stream(),
-    )
-    _check(rc, "coremaint_promotion_decide")
+    B.launch("coremaint_promotion_decide", stats.data_ptr(),
+             core.data_ptr(), viol.data_ptr(), n)
     LAUNCHES["fused_promotion_stats"] += 2
     return stats[:, 0], stats[:, 1], viol

@@ -1,13 +1,17 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version on the same inputs (tolerance 0: integer counts and weight
-sums), and the unified maintainer, unweighted and weighted, with
+version on the same inputs (tolerance 0 for integer counts and weight
+sums and for ``ell_stat``; the float kernels' tolerances are stated at
+each test), the unified maintainer, unweighted and weighted, with
 ``kernel_backend="cuda"`` against ``kernel_backend="torch"`` and the
-BZ / weighted peeling oracle, batch by batch.
+BZ / weighted peeling oracle, batch by batch, and DeepFM serving with
+the FM kernel against its plain branch.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA
 device; the module imports neither jax nor the reference package, so it
 runs on a machine with the card alone:
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,11 +22,20 @@ from repro_torch.core.weighted import weighted_core_oracle
 from repro_torch.graph.csr import build_csr
 from repro_torch.graph.generators import erdos_renyi, rmat
 from repro_torch.graph.stream import churn_stream, mixed_stream
+from repro_torch.configs import deepfm as deepfm_cfg
 from repro_torch.kernels import coremaint as K
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import fm_interaction as FM
+from repro_torch.kernels import ops
+from repro_torch.kernels import segment_ell as SE
+from repro_torch.models import recsys
 
 pytestmark = pytest.mark.gpu
 
 UNIT_STATS = ("mcd_hi_dout", "hi_dout", "mcd", "din", "same_in")
+# the dtype part of a launch counter's key (one counter per instance)
+TAG = {torch.int32: "i32", torch.int64: "i64", torch.float32: "f32",
+       torch.bfloat16: "bf16"}
 
 
 def _card():
@@ -251,3 +264,204 @@ def test_cpu_tensors_never_launch_wsum():
     args = [x.cpu() for x in _wsum_window(50, 128, seed=4)]
     _wsum(*args, 50)
     assert K.LAUNCHES == before
+
+
+# -- ELL, FM and attention kernels ---------------------------------------
+
+def _ell(n, d, seed, neg=False):
+    """A random ELL matrix on the card: ragged rows padded with n, some
+    empty rows, and (``neg``) negative ids in [-(n + 3), 0)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, d + 1, size=n)
+    deg[::7] = 0
+    ids = rng.integers(0, n, size=(n, d))
+    if neg:
+        ids = np.where(rng.random((n, d)) < 0.2,
+                       rng.integers(-(n + 3), 0, size=(n, d)), ids)
+    nbrs = np.where(np.arange(d)[None, :] < deg[:, None], ids, n)
+    return torch.from_numpy(nbrs.astype(np.int32)).to(_card())
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+@pytest.mark.parametrize("op", ["count_ge", "count_gt", "sum", "max"])
+@pytest.mark.parametrize("n,d,neg", [(300, 17, False), (4096, 40, True),
+                                     (50, 32, True)])
+def test_ell_stat_kernel_matches_plain(dtype, op, n, d, neg):
+    """Bit for bit: values below -(2**30) exercise the max sentinel, the
+    integer sums' wrap and float32 sums that round (the kernel adds in
+    the plain version's column order)."""
+    nbrs = _ell(n, d, seed=n + d, neg=neg)
+    rng = np.random.default_rng(1)
+    vals = rng.integers(-50, 50, size=n)
+    vals[::11] = -(2**31) + 5
+    vals = torch.from_numpy(vals).to(dtype).to(_card())
+    key = f"ell_stat[{op},{TAG[dtype]}]"
+    before = SE.LAUNCHES[key]
+    got = ops.ell_stat_op(nbrs, vals, vals, op)
+    torch.cuda.synchronize()
+    assert SE.LAUNCHES[key] == before + 1
+    want = SE.ell_stat_plain(nbrs, vals, vals, op)
+    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("n,d", [(300, 17), (4096, 40), (500, 100)])
+def test_ell_stat_float_kernel_is_bit_exact_on_real_values(op, n, d):
+    """float32 values of mixed sign and of magnitudes 1e-3 to 1e3, whose
+    sums depend on the order of the adds: still bit for bit (tolerance
+    0), since the kernel adds in column order as the plain version
+    does."""
+    nbrs = _ell(n, d, seed=n, neg=True)
+    rng = np.random.default_rng(n + d)
+    vals = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, size=n)
+    vals = torch.from_numpy(vals.astype(np.float32)).to(_card())
+    got = ops.ell_stat_op(nbrs, vals, vals, op)
+    want = SE.ell_stat_plain(nbrs, vals, vals, op)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("n,d,f", [(200, 12, 16), (3000, 40, 100),
+                                   (64, 5, 300)])
+def test_ell_aggregate_kernel_matches_plain(dtype, op, n, d, f):
+    """float32 sum: rtol/atol 1e-5 (sum order); max: exact; bfloat16
+    sum: rtol 2e-2 / atol 1e-2, as the reference's kernel tests."""
+    nbrs = _ell(n, d, seed=n + f, neg=True)
+    gen = torch.Generator(device=_card()).manual_seed(f)
+    feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
+    key = f"ell_aggregate[{op},{TAG[dtype]}]"
+    before = SE.LAUNCHES[key]
+    got = ops.ell_aggregate_op(nbrs, feats, op)
+    torch.cuda.synchronize()
+    assert SE.LAUNCHES[key] == before + 1
+    want = SE.ell_aggregate_plain(nbrs, feats, op)
+    assert got.dtype == want.dtype == dtype and got.shape == (n, f)
+    if op == "max":
+        assert torch.equal(got, want)
+    elif dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,d", [(64, 39, 10), (1000, 26, 16), (3, 5, 4),
+                                   (9, 200, 100)])
+def test_fm_interaction_kernel_matches_plain(dtype, b, f, d):
+    """float32: rtol/atol 1e-4, as the reference's kernel test; both
+    accumulate in float32, so bfloat16 differs by one rounding of the
+    result (rtol 1e-2). [9, 200, 100] is too wide to stage in shared
+    memory and reads device memory directly."""
+    gen = torch.Generator(device=_card()).manual_seed(b)
+    emb = torch.randn((b, f, d), generator=gen, device="cuda").to(dtype)
+    key = f"fm_interaction[{TAG[dtype]}]"
+    before = FM.LAUNCHES[key]
+    got = ops.fm_interaction_op(emb)
+    torch.cuda.synchronize()
+    assert FM.LAUNCHES[key] == before + 1
+    want = FM.fm_interaction_plain(emb)
+    assert got.dtype == dtype and got.shape == (b,)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d", [
+    (2, 4, 4, 256, 256, 64), (1, 8, 2, 512, 512, 64),
+    (2, 4, 1, 128, 128, 128), (1, 4, 2, 200, 200, 64),
+    (1, 4, 2, 128, 384, 128), (1, 2, 1, 384, 96, 64)])
+def test_flash_attention_kernel_matches_plain(dtype, causal, b, h, hkv, sq,
+                                              sk, d):
+    """float32 2e-3 and bfloat16 3e-2, as the reference's kernel tests;
+    Sq != Sk checks the top-left causal alignment, Sq = 200 a ragged
+    query tile."""
+    gen = torch.Generator(device=_card()).manual_seed(sq + sk)
+    q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+    key = FA.launch_key(causal, dtype, d)
+    before = FA.LAUNCHES[key]
+    got = ops.flash_attention_op(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES[key] == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_new_kernels_are_forward_only():
+    """A CUDA input that requires grad raises (no silent detach); under
+    no_grad the same call launches."""
+    dev = _card()
+    nbrs = _ell(64, 8, seed=1)
+    vals = torch.randn(64, device=dev, requires_grad=True)
+    feats = torch.randn((64, 16), device=dev, requires_grad=True)
+    emb = torch.randn((8, 5, 4), device=dev, requires_grad=True)
+    q = torch.randn((1, 2, 64, 64), device=dev, requires_grad=True)
+    calls = [lambda: ops.ell_stat_op(nbrs, vals, vals.detach(), "sum"),
+             lambda: ops.ell_aggregate_op(nbrs, feats),
+             lambda: ops.fm_interaction_op(emb),
+             lambda: ops.flash_attention_op(q, q.detach(), q.detach())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="training slice"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def test_new_kernels_refuse_what_they_do_not_take():
+    dev = _card()
+    nbrs = _ell(64, 8, seed=2)
+    with pytest.raises(TypeError, match="int32, int64|one of"):
+        ops.ell_stat_op(nbrs, torch.ones(64, dtype=torch.int16, device=dev),
+                        torch.ones(64, dtype=torch.int16, device=dev))
+    with pytest.raises(TypeError, match="int32 nbrs"):
+        ops.ell_stat_op(nbrs.long(), torch.ones(64, device=dev),
+                        torch.ones(64, device=dev))
+    with pytest.raises(TypeError):
+        ops.ell_aggregate_op(nbrs, torch.ones((64, 4), dtype=torch.float64,
+                                              device=dev))
+    q = torch.ones((1, 2, 64, 32), device=dev)
+    with pytest.raises(ValueError, match="D in"):
+        ops.flash_attention_op(q, q, q)
+    with pytest.raises(TypeError):
+        ops.fm_interaction_op(torch.ones((4, 3, 2), dtype=torch.float64,
+                                         device=dev))
+
+
+def test_deepfm_serving_on_the_card_matches_plain_branch_and_cpu():
+    """DeepFM at smoke() width on the card: the FM-kernel branch against
+    the plain branch (rtol/atol 1e-4, TF32 off) and against the CPU."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = deepfm_cfg.smoke()
+    assert not cfg.use_pallas_fm
+    model = recsys.deepfm_init(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+    rng = np.random.default_rng(0)
+    sparse = torch.from_numpy(rng.integers(
+        0, cfg.rows_per_field, (256, cfg.n_sparse)).astype(np.int32))
+    fm_cfg = dataclasses.replace(cfg, use_pallas_fm=True)
+    before = FM.LAUNCHES["fm_interaction[f32]"]
+    got = recsys.deepfm_forward(fm_cfg, model, sparse.to(dev))
+    assert FM.LAUNCHES["fm_interaction[f32]"] == before + 1
+    plain = recsys.deepfm_forward(cfg, model, sparse.to(dev))
+    cpu = recsys.deepfm_forward(fm_cfg, model.cpu(), sparse)
+    assert got.dtype == torch.float32 and got.shape == (256,)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_cpu_tensors_never_launch_new_kernels():
+    _card()
+    before = (dict(SE.LAUNCHES), dict(FM.LAUNCHES), dict(FA.LAUNCHES))
+    nbrs = torch.full((4, 2), 4, dtype=torch.int32)
+    ops.ell_stat_op(nbrs, torch.ones(4), torch.ones(4))
+    ops.ell_aggregate_op(nbrs, torch.ones((4, 3)))
+    ops.fm_interaction_op(torch.ones((2, 3, 4)))
+    ops.flash_attention_op(*[torch.ones((1, 1, 8, 64))] * 3)
+    assert (SE.LAUNCHES, FM.LAUNCHES, FA.LAUNCHES) == before
