@@ -43,6 +43,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..graph.csr import CSRGraph
 from .decomposition import peel_decomposition, rank_to_labels
 from .engine import BatchStats, apply_batch, apply_batch_weighted
@@ -81,17 +82,6 @@ def _as_edge_array(edges) -> np.ndarray:
     if edges is None:
         return np.zeros((0, 2), dtype=np.int64)
     return np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; a CUDA device without CUDA raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CoreMaintainer runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def resolve_backend(kernel_backend: Optional[str],

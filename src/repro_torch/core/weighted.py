@@ -24,7 +24,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .api import resolve_backend, resolve_device
+from ..device import resolve_device
+from .api import resolve_backend
 from .graph_ops import _seg2
 from .remove import weighted_core_fixpoint_pass
 

@@ -9,13 +9,16 @@ the checkout root (or ``$REPRO_TORCH_BUILD_DIR``) and is loaded with
 ``ctypes``; each kernel module registers its C entry points' argument
 types once, at import, with ``register``, and launches them with
 ``launch``. A missing ``nvcc`` or a failed build raises
-``RuntimeError``.
+``RuntimeError``. ``ptxas -v`` reports every kernel's registers and
+spills; the report is kept beside the library (``<library>.ptxas.txt``)
+and read back with ``ptxas_usage``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, object] = {}
 _argtypes: Dict[str, list] = {}
@@ -82,7 +85,7 @@ def _run_all(cmds) -> list:
     return outs
 
 
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile every ``csrc/*.cu`` into the shared library (only when it
     is missing) and return its path."""
     srcs = sources()
@@ -94,16 +97,48 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / f"{p.stem}.o" for p in srcs]
-        extra = ["-Xptxas=-v"] if verbose else []
-        outs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(o),
-                          str(p)] for p, o in zip(srcs, objs)])
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                         for p, o in zip(srcs, objs)])
         lib = Path(tmp) / out.name
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
                    *map(str, objs)]])
-        if verbose:
-            print("".join(outs), flush=True)
+        report = Path(tmp) / "ptxas.txt"
+        report.write_text("".join(outs))
+        os.replace(report, _ptxas_report(out))
         os.replace(lib, out)  # atomic: a concurrent loader never sees half
     return out
+
+
+def _ptxas_report(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def ptxas_usage(pattern: str) -> Dict[str, dict]:
+    """``parse_ptxas`` of the built library's report."""
+    return parse_ptxas(_ptxas_report(build()).read_text(), pattern)
+
+
+def parse_ptxas(text: str, pattern: str) -> Dict[str, dict]:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from a
+    ``ptxas -v`` report, for the kernels whose mangled name contains
+    ``pattern``."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    return usage
 
 
 def library() -> ctypes.CDLL:

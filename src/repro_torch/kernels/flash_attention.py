@@ -6,19 +6,27 @@ PyTorch version and launch counter.
 ``[B, Hkv, Sk, D]`` with ``H % Hkv == 0``, the kv head of q head ``h``
 being ``h // (H // Hkv)``; causal masking is top-left aligned (query
 ``i`` sees key ``j`` when ``i >= j``, also when ``Sq != Sk``); the scale
-defaults to the float ``1 / sqrt(D)``; the sums run in float32 and the
+defaults to the float ``1 / sqrt(D)`` and, of any sign, multiplies the
+scores before the mask and the max; the sums run in float32 and the
 output is in q's dtype. It accepts exactly the calls the reference
 accepts: ``block_q`` and ``block_k`` (clipped to the sequence lengths)
 must divide them, else ``ValueError``; the CUDA kernel picks its own
 tile.
 
-On a CUDA tensor it launches ``flash_kernel`` of
-``csrc/flash_attention.cu`` (float32 or bfloat16, D of 64 or 128; one
-block per query tile streaming K/V tiles through shared memory with the
-running max and normaliser) or raises; it never falls back, and it is
-forward-only. On a CPU tensor it runs ``flash_attention_plain``, which
-follows the kernel's arithmetic (not ``ref.mha_ref``, whose scale is
-rounded to q's dtype).
+On a CUDA tensor it launches a kernel of ``csrc/flash_attention.cu`` or
+raises; it never falls back, and it is forward-only. bfloat16 runs
+``flash_wgmma_kernel``: the tensor cores (``wgmma``) fed by TMA through a
+two-stage K/V ring, one producer and two consumer warpgroups per 128
+queries, P rounded to bfloat16 for the P V product (the one difference
+from the plain version). float32 runs ``flash_ffma_kernel``: register
+micro-tiles of S and O on the CUDA cores, full float32 (no TF32). Both
+need ``sm_90a``; the bfloat16 kernel's TMA maps are built on the host with
+the CUDA driver's ``cuTensorMapEncodeTiled``, reached through the runtime. The
+bound is the tensor cores' 989 TFLOP/s (bfloat16) or the CUDA cores' 67
+TFLOP/s (float32) at prefill lengths; the measured times are in PERF.md.
+On a CPU tensor it runs ``flash_attention_plain``, which follows the
+kernel's arithmetic (not ``ref.mha_ref``, whose scale is rounded to q's
+dtype).
 """
 from __future__ import annotations
 
@@ -104,6 +112,12 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous), copied when a view's offset leaves its data
+    off a 16-byte boundary."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     block_q: int = 512, block_k: int = 512) -> torch.Tensor:
@@ -120,7 +134,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: the CUDA kernel takes D in "
                          f"{HEAD_DIMS}, got {d}")
     B.forward_only("flash_attention", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # TMA and cp.async read 16-byte aligned rows
+    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
     if b == 0 or h == 0:
         return out

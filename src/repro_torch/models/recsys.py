@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class DeepFMConfig:
@@ -69,12 +71,13 @@ class DeepFMConfig:
 class DeepFM(nn.Module):
     """The DeepFM parameters; ``forward(sparse, dense=None)`` is
     ``deepfm_forward``. The tensors are left uninitialised: build one
-    with ``deepfm_init`` or ``deepfm_params_from_reference``."""
+    with ``deepfm_init`` or ``deepfm_params_from_reference``. ``device``
+    ``None`` means the card (raises without one)."""
 
     def __init__(self, cfg: DeepFMConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=resolve_device(device))
         v, e = cfg.vocab_total, cfg.embed_dim
         self.embed = nn.Parameter(torch.empty(v, e, **kw))
         self.w1 = nn.Parameter(torch.empty(v, **kw))
@@ -92,18 +95,20 @@ def deepfm_init(cfg: DeepFMConfig, generator: torch.Generator,
                 device=None) -> DeepFM:
     """Random DeepFM parameters with the reference's laws: embed and
     ``w1`` normal times 0.01, MLP weights normal over ``sqrt(in)``,
-    biases 0. ``device`` defaults to the generator's."""
-    device = torch.device(device if device is not None else generator.device)
+    biases 0. ``device`` ``None`` means the card (raises without one).
+    The numbers are drawn on the generator's device and copied to
+    ``device``, so they depend on the generator alone."""
     model = DeepFM(cfg, device=device)
+    draw = generator.device
 
     def normal(x: torch.Tensor, scale: float) -> None:
-        x.copy_(torch.empty(x.shape, dtype=torch.float32, device=device)
+        x.copy_(torch.empty(x.shape, dtype=torch.float32, device=draw)
                 .normal_(generator=generator).mul_(scale))
 
     normal(model.embed, 0.01)
     normal(model.w1, 0.01)
     for lin, (a, b) in zip(model.mlp, cfg.mlp_shapes()):
-        w = torch.empty((a, b), dtype=torch.float32, device=device)
+        w = torch.empty((a, b), dtype=torch.float32, device=draw)
         w.normal_(generator=generator).div_(math.sqrt(a))
         lin.weight.copy_(w.t())  # the reference's [in, out] layout
         lin.bias.zero_()
@@ -114,7 +119,8 @@ def deepfm_params_from_reference(params: Mapping[str, Any],
                                  cfg: DeepFMConfig, device=None) -> DeepFM:
     """The reference's parameter pytree (``embed``, ``w1``, ``bias``,
     ``mlp`` as a list of ``{"w": [in, out], "b": [out]}``, any arrays
-    numpy can read) as a ``DeepFM`` module on ``device``."""
+    numpy can read) as a ``DeepFM`` module on ``device`` (``None``: the
+    card; raises without one)."""
     model = DeepFM(cfg, device=device)
 
     def put(dst: torch.Tensor, x) -> None:

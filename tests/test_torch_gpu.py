@@ -11,6 +11,10 @@ device; the module imports neither jax nor the reference package, so it
 runs on a machine with the card alone:
 ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import dataclasses
+import os
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from repro_torch.graph.csr import build_csr
 from repro_torch.graph.generators import erdos_renyi, rmat
 from repro_torch.graph.stream import churn_stream, mixed_stream
 from repro_torch.configs import deepfm as deepfm_cfg
+from repro_torch.kernels import build as build_lib
 from repro_torch.kernels import coremaint as K
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fm_interaction as FM
@@ -372,25 +377,94 @@ def test_fm_interaction_kernel_matches_plain(dtype, b, f, d):
 @pytest.mark.parametrize("b,h,hkv,sq,sk,d", [
     (2, 4, 4, 256, 256, 64), (1, 8, 2, 512, 512, 64),
     (2, 4, 1, 128, 128, 128), (1, 4, 2, 200, 200, 64),
-    (1, 4, 2, 128, 384, 128), (1, 2, 1, 384, 96, 64)])
+    (1, 4, 2, 128, 384, 128), (1, 2, 1, 384, 96, 64),
+    (1, 28, 4, 1024, 1024, 128), (1, 4, 2, 1000, 1000, 128),
+    (1, 14, 2, 384, 96, 128), (2, 8, 2, 512, 512, 64)])
 def test_flash_attention_kernel_matches_plain(dtype, causal, b, h, hkv, sq,
                                               sk, d):
     """float32 2e-3 and bfloat16 3e-2, as the reference's kernel tests;
-    Sq != Sk checks the top-left causal alignment, Sq = 200 a ragged
-    query tile."""
+    Sq != Sk checks the top-left causal alignment (Sq > Sk at qwen2-7b's
+    group of 7 too), Sq = 200 and Sq = Sk = 1,000 ragged tiles, 28/4
+    heads qwen2-7b's. The blocks are the whole sequences, which the
+    reference's rule (blocks divide the lengths) always accepts; the
+    kernels pick their own tiles."""
     gen = torch.Generator(device=_card()).manual_seed(sq + sk)
     q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
     v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
     key = FA.launch_key(causal, dtype, d)
     before = FA.LAUNCHES[key]
-    got = ops.flash_attention_op(q, k, v, causal=causal)
+    got = ops.flash_attention_op(q, k, v, causal=causal, block_q=sq,
+                                 block_k=sk)
     torch.cuda.synchronize()
     assert FA.LAUNCHES[key] == before + 1
     want = FA.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _row_rel_err(got, want) < ROW_REL[dtype]
+
+
+# max over query rows of |got - want| / |want| (each row's D values): the
+# sound error is a few bf16 roundings (2**-9 each) in bfloat16 and ex2's
+# approximation in float32, while a dropped or misplaced key tile moves a
+# late row's output by several per cent
+ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _row_rel_err(got, want) -> float:
+    g, w = got.double(), want.double()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [0.3, 0.0, -0.125, -1.0])
+def test_flash_attention_kernel_takes_any_scale(dtype, causal, scale):
+    """An explicit scale, zero and negative too, gives the plain version's
+    answer (the kernels scale the scores before the mask and the max);
+    Sq = Sk = 200 has ragged tiles, so masked keys are in play."""
+    gen = torch.Generator(device=_card()).manual_seed(7)
+    q = torch.randn((1, 4, 200, 128), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, 2, 200, 128), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, 2, 200, 128), generator=gen, device="cuda").to(dtype)
+    key = FA.launch_key(causal, dtype, 128)
+    before = FA.LAUNCHES[key]
+    got = FA.flash_attention(q, k, v, causal=causal, scale=scale,
+                             block_q=200, block_k=200)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES[key] == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    assert torch.isfinite(got.float()).all()
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _row_rel_err(got, want) < ROW_REL[dtype]
+
+
+def _sass_by_function(lib) -> dict:
+    """``cuobjdump -sass`` of the built library, split by function."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    parts = re.split(r"Function : (\S+)", text)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def test_attention_kernels_run_the_designed_instructions():
+    """The bfloat16 instances run wgmma (HGMMA) on tiles that TMA loads
+    (UTMALDG); the float32 instances stay on the CUDA cores (no HGMMA,
+    no HMMA), so a scalar path cannot pass for the tensor-core one."""
+    _card()
+    sass = _sass_by_function(build_lib.build())
+    wgmma = {n: t for n, t in sass.items() if "flash_wgmma_kernel" in n}
+    ffma = {n: t for n, t in sass.items() if "flash_ffma_kernel" in n}
+    assert len(wgmma) == 2 and len(ffma) == 2, sorted(sass)
+    for name, text in wgmma.items():
+        assert "HGMMA" in text and "UTMALDG" in text, name
+    for name, text in ffma.items():
+        assert "HGMMA" not in text and "HMMA" not in text, name
+        assert "FFMA" in text, name
 
 
 def test_new_kernels_are_forward_only():

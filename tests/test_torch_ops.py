@@ -34,6 +34,7 @@ from repro.kernels.segment_ell import ell_stat as ref_stat  # noqa: E402
 from repro_torch.graph.csr import ELLGraph, ell_from_csr  # noqa: E402
 from repro_torch.graph.generators import erdos_renyi  # noqa: E402
 from repro_torch.kernels import build as B  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import segment_ell as SE  # noqa: E402
 
@@ -291,6 +292,19 @@ def test_flash_attention_dtypes(dtype):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("scale", [0.3, 0.0, -0.125])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_takes_any_scale(scale, causal):
+    """An explicit scale, zero and negative too, as the Pallas kernel
+    applies it (to q, before the mask and the max)."""
+    j, t = _qkv(1, 4, 2, 128, 128, 64, seed=11)
+    want = np.asarray(ref_flash(*j, causal=causal, scale=scale, block_q=128,
+                                block_k=128, interpret=True))
+    got = FA.flash_attention(*t, causal=causal, scale=scale, block_q=128,
+                             block_k=128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_mha_ref_matches_reference_oracle(dtype, causal):
@@ -373,6 +387,51 @@ def test_library_name_covers_every_cuda_source(tmp_path):
     names.add(B.library_name(copies + [extra]))
     assert len(names) == len(copies) + 2
     assert B.library_name(copies) == base
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN1a18flash_wgmma_kernelILi128EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a18flash_wgmma_kernelILi128EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN1a17flash_ffma_kernelILi64EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a17flash_ffma_kernelILi64EEEv
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN1a11stat_kernelILi4EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a11stat_kernelILi4EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers
+"""
+
+
+@pytest.mark.parametrize("pattern,want", [
+    ("flash_", {"_ZN1a18flash_wgmma_kernelILi128EEEv": (168, 0, 0),
+                "_ZN1a17flash_ffma_kernelILi64EEEv": (255, 12, 16)}),
+    ("flash_ffma_kernelILi64E", {"_ZN1a17flash_ffma_kernelILi64EEEv":
+                                 (255, 12, 16)}),
+    ("", {"_ZN1a18flash_wgmma_kernelILi128EEEv": (168, 0, 0),
+          "_ZN1a17flash_ffma_kernelILi64EEEv": (255, 12, 16),
+          "_ZN1a11stat_kernelILi4EEEv": (24, 0, 0)})])
+def test_ptxas_report_is_read_per_kernel(pattern, want):
+    """The build keeps ``ptxas -v``'s report; each kernel's registers
+    and spill bytes are read from its own section."""
+    got = B.parse_ptxas(PTXAS_REPORT, pattern)
+    assert {k: (u["registers"], u["spill_stores"], u["spill_loads"])
+            for k, u in got.items()} == want
+
+
+def test_attention_inputs_are_realigned_for_the_kernel():
+    """TMA and cp.async read 16-byte aligned rows: a view whose offset
+    breaks that is copied, an aligned tensor is passed as it is."""
+    base = torch.arange(4 * 64 + 1, dtype=torch.float32)
+    off = base[1:].view(1, 1, 4, 64)
+    assert off.data_ptr() % 16 != 0
+    fixed = FA._aligned(off)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, off)
+    ok = torch.ones((1, 1, 4, 64))
+    assert FA._aligned(ok) is ok
 
 
 def test_plain_versions_run_on_cpu_without_a_build():

@@ -25,6 +25,7 @@ from repro.models import recsys as jr  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import common  # noqa: E402
 from repro_torch.data.recsys import synthetic_ctr_batches  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.models import recsys as tr  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -38,7 +39,7 @@ def deepfm():
     tc = configs.get_arch("deepfm").smoke()
     params = jr.deepfm_init(jc, jax.random.PRNGKey(0))
     model = tr.deepfm_params_from_reference(
-        jax.tree.map(np.asarray, params), tc)
+        jax.tree.map(np.asarray, params), tc, device="cpu")
     return jc, tc, params, model
 
 
@@ -142,7 +143,7 @@ def test_deepfm_forward_with_dense_features(deepfm):
     tc = dataclasses.replace(tc, n_dense=3)
     params = jr.deepfm_init(jc, jax.random.PRNGKey(1))
     model = tr.deepfm_params_from_reference(
-        jax.tree.map(np.asarray, params), tc)
+        jax.tree.map(np.asarray, params), tc, device="cpu")
     sparse = _sparse(jc, 32, seed=4)
     dense = np.random.default_rng(5).normal(size=(32, 3)).astype(np.float32)
     want = np.asarray(jr.deepfm_forward(jc, params, jnp.asarray(sparse),
@@ -223,14 +224,21 @@ def test_deepfm_params_carry_the_mlp_layout(deepfm):
     assert not any(p.requires_grad for p in model.parameters())
 
 
-def test_deepfm_init_follows_the_reference_laws():
-    """Seeded, on the generator's device, with the reference's shapes
-    and scales (normal x 0.01 tables, normal / sqrt(in) MLP, zero
-    biases)."""
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_deepfm_init_follows_the_reference_laws(monkeypatch):
+    """Seeded, with the reference's shapes and scales (normal x 0.01
+    tables, normal / sqrt(in) MLP, zero biases); an explicit "cpu"
+    gives the same numbers from the same generator seed, and
+    ``device=None`` means the card, raising without one as
+    ``CoreMaintainer`` does."""
     cfg = configs.get_arch("deepfm").smoke()
-    a = tr.deepfm_init(cfg, torch.Generator().manual_seed(0))
-    b = tr.deepfm_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    a = tr.deepfm_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = tr.deepfm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
     for pa, pb in zip(a.parameters(), b.parameters()):
+        assert pa.device.type == "cpu"
         assert torch.equal(pa, pb)
     assert a.embed.shape == (cfg.vocab_total, cfg.embed_dim)
     assert a.w1.shape == (cfg.vocab_total,) and a.bias.item() == 0.0
@@ -241,3 +249,33 @@ def test_deepfm_init_follows_the_reference_laws():
     assert not any(lin.bias.any() for lin in a.mlp)
     # n_params (the reference's count) leaves out the scalar bias
     assert sum(p.numel() for p in a.parameters()) == cfg.n_params + 1
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        tr.deepfm_init(cfg, torch.Generator().manual_seed(0))
+
+
+def test_deepfm_module_defaults_to_the_card(monkeypatch):
+    """``DeepFM(cfg)`` without a device is built on the card: it raises
+    without one, and ``device="cpu"`` builds on the CPU."""
+    cfg = configs.get_arch("deepfm").smoke()
+    assert all(p.device.type == "cpu"
+               for p in tr.DeepFM(cfg, device="cpu").parameters())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        tr.DeepFM(cfg)
+
+
+def test_deepfm_params_from_reference_defaults_to_the_card(deepfm,
+                                                           monkeypatch):
+    """The reference's parameters go to the card without a device (and
+    raise without one); on ``"cpu"`` they are carried over exactly."""
+    _, tc, params, model = deepfm
+    arrays = jax.tree.map(np.asarray, params)
+    again = tr.deepfm_params_from_reference(arrays, tc, device="cpu")
+    for pa, pb in zip(again.parameters(), model.parameters()):
+        assert torch.equal(pa, pb)
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA device by default"):
+        tr.deepfm_params_from_reference(arrays, tc)
