@@ -23,6 +23,12 @@ Phases:
      (the RMAT graph of phase 4: window of ~2^24 slots, n = 2^21), with
      0 mismatches required, timed with CUDA events beside its byte bound;
      ``coo_stat[wsum]`` on the weighted maintainer's state of phase 5;
+     ``fused_removal_round`` and ``coo_stat[wsum]`` also on a shuffled
+     copy of their window (one seeded random slot order, no runs of one
+     src), held to their plain versions and to the sorted window's
+     result, and the removal round's edge pass (``removal_round_kernel``)
+     timed beside the one-slot-a-thread ``stat_kernel<MCD_HI_DOUT>``
+     (``coo_stat[mcd_hi_dout]``) on both layouts, the two equal;
   4. the main path on ``rmat(21, 16_000_000)``: a 100,000-edge removal
      burst, its re-insertion, then mixed batches of 100,000 edits; per
      batch the wall time, round counts and kernel launches; at the end
@@ -395,6 +401,15 @@ def kernel_row(name, kname, got, want, run, run_plain, nbytes, ops,
     )
 
 
+def shuffled(device, cols, seed: int) -> list:
+    """The window's columns in one seeded random slot order: no runs of
+    one src are left."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    perm = torch.randperm(cols[0].shape[0], generator=gen, device=device)
+    return [c[perm] for c in cols]
+
+
 def phase_kernels(device, m, iters: int, seed: int = 0) -> list:
     """Each kernel against its plain version on the maintainer's state."""
     import torch
@@ -432,6 +447,28 @@ def phase_kernels(device, m, iters: int, seed: int = 0) -> list:
            # + new_core, drop
            _stat_bytes(w, e_valid, n, "mcd_hi_dout") + 5 * n,
            e_valid * 18 + 3 * n)
+    sargs = (*shuffled(device, (src, dst, valid), seed + 1), core, label, n)
+    got = K.fused_removal_round(*sargs)
+    for x, y, z in zip(got, K.fused_removal_round_plain(*sargs),
+                       K.fused_removal_round(*args)):
+        check(torch.equal(x, y) and torch.equal(x, z),
+              "phase 3 fused_removal_round (shuffled): != plain or sorted")
+    rows[-1]["shuffled_ms"] = time_ms(
+        lambda: K.fused_removal_round(*sargs), iters, device)
+    edge = {}
+    for layout, a in (("sorted", args), ("shuffled", sargs)):
+        check(torch.equal(K.removal_stats(*a),
+                          K.coo_stat(*a, "mcd_hi_dout")),
+              f"phase 3 removal edge pass ({layout}) != coo_stat[mcd_hi_dout]")
+        edge[layout] = {
+            "removal_round_kernel": time_ms(lambda: K.removal_stats(*a),
+                                            iters, device),
+            "stat_kernel<MCD_HI_DOUT>": time_ms(
+                lambda: K.coo_stat(*a, "mcd_hi_dout"), iters, device)}
+    rows[-1]["edge_pass_ms"] = edge
+    log(f"phase 3 fused_removal_round shuffled: mismatches=0 (== sorted) "
+        f"kernel_ms={rows[-1]['shuffled_ms']:.4f}; edge pass ms "
+        f"{json.dumps(edge)}")
     record("fused_promotion_stats", "fused_promotion_stats",
            K.fused_promotion_stats(*args),
            K.fused_promotion_stats_plain(*args),
@@ -453,7 +490,9 @@ def _wsum_bytes(e: int, e_valid: int, n: int) -> int:
 def phase_kernels_weighted(device, m, iters: int) -> list:
     """``coo_stat[wsum]`` against its plain version on the weighted
     maintainer's state, at two thresholds on either side of the
-    predicate: ``(core + 1) // 2`` (a bisection mid) and ``core + 1``."""
+    predicate: ``(core + 1) // 2`` (a bisection mid) and ``core + 1``,
+    and at the first on a shuffled copy of the window."""
+    import torch
     from repro_torch.kernels import coremaint as K
 
     w = m._window(0)
@@ -474,6 +513,20 @@ def phase_kernels_weighted(device, m, iters: int) -> list:
             lambda: K.wsum_plain(src, dst, valid, wt, core, thresh, n),
             _wsum_bytes(w, e_valid, n), e_valid * 2 * 4, iters, device,
             f"E={w} n={n} thresh={tname} sum={int(got.sum())}"))
+    # the bisection-like threshold on a shuffled copy of the window
+    thresh = (core + 1) // 2
+    ssrc, sdst, svalid, swt = shuffled(device, (src, dst, valid, wt), 2)
+    sargs = (ssrc, sdst, svalid, core, None, n, "wsum", thresh, swt)
+    got = K.coo_stat(*sargs)
+    check(torch.equal(got, K.wsum_plain(ssrc, sdst, svalid, swt, core,
+                                        thresh, n))
+          and torch.equal(got, K.coo_stat(src, dst, valid, core, None, n,
+                                          "wsum", thresh, wt)),
+          "phase 3 coo_stat[wsum] (shuffled): != plain or sorted")
+    rows[0]["shuffled_ms"] = time_ms(lambda: K.coo_stat(*sargs), iters,
+                                     device)
+    log(f"phase 3 coo_stat[wsum] shuffled thresh=(core+1)//2: mismatches=0 "
+        f"(== sorted) kernel_ms={rows[0]['shuffled_ms']:.4f}")
     # both thresholds are checked and logged; the JSON row is the
     # bisection-like one
     return rows[:1]
@@ -979,6 +1032,7 @@ def main() -> int:
     from repro_torch.kernels import coremaint as K
 
     device = "cuda"
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # phase 7a's tolerance
     # ---- phase 1 --------------------------------------------------------
     t0 = time.perf_counter()
@@ -1111,6 +1165,7 @@ def main() -> int:
         r["status"] = "on the slice's path (phase 7)"
     rows += new_rows
 
+    log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,21 +2,38 @@
 //
 // Replaces the three Pallas TPU kernels of src/repro/kernels/coremaint.py:
 //   coo_stat (_stat_kernel)                     -> stat_kernel<STAT>
-//   fused_removal_round (_removal_kernel)       -> stat_kernel<MCD_HI_DOUT>
+//   fused_removal_round (_removal_kernel)       -> removal_round_kernel
 //                                                  + removal_decide_kernel
 //   fused_promotion_stats (_promotion_kernel)   -> stat_kernel<HI_DOUT>
 //                                                  + promotion_decide_kernel
 //   coo_stat(stat="wsum") (_wsum_kernel)        -> wsum_kernel
 //
-// Design. The work is edge-parallel: one thread per slot of the COO window
-// reads src, dst and valid (coalesced), gathers core/label/aux of both
-// endpoints (random reads), evaluates the same predicates as the Pallas
-// kernel's _edge_columns, and adds each nonzero indicator into the packed
-// int32 output out[n, C] with atomicAdd. Integer sums are exact in any
-// order, so the result is bit-identical to the reference. The TPU's
-// one-hot matmuls and its (n/BN, E/BE) grid with whole vertex vectors in
-// VMEM are not carried over: Hopper has no use for a dense one-hot and no
-// in-order grid.
+// Design of stat_kernel. The work is edge-parallel: one thread per slot of
+// the COO window reads src, dst and valid (coalesced), gathers
+// core/label/aux of both endpoints (random reads), evaluates the same
+// predicates as the Pallas kernel's _edge_columns, and adds each nonzero
+// indicator into the packed int32 output out[n, C] with atomicAdd. Integer
+// sums are exact in any order, so the result is bit-identical to the
+// reference. The TPU's one-hot matmuls and its (n/BN, E/BE) grid with
+// whole vertex vectors in VMEM are not carried over: Hopper has no use for
+// a dense one-hot and no in-order grid.
+//
+// Design of wsum_kernel and removal_round_kernel (the two hottest edge
+// passes). from_graph lays the slots out in CSR order, sorted by src, so a
+// high-degree vertex owns a long run of consecutive slots with one src.
+// One atomicAdd a slot on the src side sends a whole run to one address,
+// where the atomics serialise at L2. So each thread takes kSlots
+// consecutive slots, loaded as one 128-bit word per int32 column and one
+// 32-bit word of valid bytes (scalar loads for the window's ragged tail and
+// for a base pointer that is not aligned), folds its own slots that share a
+// src, and a segmented scan over the warp's lanes by shuffles, keyed by the
+// raw src, joins the runs across lanes (warp_segmented_add): a run costs
+// one atomic per nonzero column per warp it touches instead of one per
+// slot. The dst side stays one atomic per slot and nonzero column: within
+// a run dst ascends, so those atomics spread over the vertex range. Any
+// grouping of equal keys gives the same integer sums, so the results stay
+// bit for bit those of the plain version on any slot order; sortedness
+// decides only the speed.
 //
 // The fused decision. The TPU kernels decide on the last edge block,
 // which works only because the TPU grid runs in order. Here blocks finish
@@ -25,8 +42,9 @@
 //
 // Bound. Bytes: each slot's src, dst (4 B each) and valid (1 B), the
 // vertex state read once and the output written once. In practice the
-// random endpoint gathers and the atomics on high-degree (hub) vertices
-// of power-law graphs limit it; making that fast is later work.
+// random endpoint gathers and the dst-side atomics over the vertex range
+// limit it, and for stat_kernel the src-side atomics on high-degree (hub)
+// vertices of power-law graphs too.
 //
 // wsum. The weighted h-index bisection's inner pass: each live slot adds its
 // int32 weight to an endpoint whose OTHER endpoint's core clears the
@@ -38,7 +56,8 @@
 //
 // Out-of-range endpoints follow jnp.take(fill_value=0) in the reference:
 // an index in [-n, 0) wraps once, anything else outside [0, n) reads 0;
-// the scatter to an endpoint outside [0, n) is dropped.
+// the scatter to an endpoint outside [0, n) is dropped (runs are keyed by
+// the raw index, so a run of such an endpoint is dropped whole).
 //
 // C interface for ctypes: every function returns cudaGetLastError() of
 // its launch(es); the caller raises when it is not 0.
@@ -51,6 +70,10 @@ enum Stat { MCD_HI_DOUT = 0, HI_DOUT = 1, MCD = 2, DIN = 3, SAME_IN = 4 };
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 64;
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kSlots = 4;  // consecutive slots a thread of the run-folding
+                           // kernels takes: one 128-bit load per column
 
 template <int STAT>
 struct Cols {
@@ -165,30 +188,221 @@ promotion_decide_kernel(const int* __restrict__ stats2,
   }
 }
 
+// A thread's kSlots consecutive slots [e0, e0 + kSlots) of an int32
+// column: one 128-bit load when the column's base is 16-byte aligned
+// (`vec`) and the group lies inside the window, else one scalar load a
+// slot; a slot past the window reads 0.
+__device__ __forceinline__ void load_slots(const int* __restrict__ p,
+                                           long long e0, long long E,
+                                           bool vec, int (&x)[kSlots]) {
+  if (vec && e0 + kSlots <= E) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p + e0));
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) x[j] = e0 + j < E ? p[e0 + j] : 0;
+  }
+}
+
+// The same for the valid bytes: one 32-bit word when aligned; a slot past
+// the window is dead.
+__device__ __forceinline__ void load_slots(const uint8_t* __restrict__ p,
+                                           long long e0, long long E,
+                                           bool vec, bool (&x)[kSlots]) {
+  if (vec && e0 + kSlots <= E) {
+    const unsigned q = __ldg(reinterpret_cast<const unsigned*>(p + e0));
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) x[j] = ((q >> (8 * j)) & 0xffu) != 0;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) x[j] = e0 + j < E && p[e0 + j] != 0;
+  }
+}
+
+// One run's column sums into out[key, :], one atomic per nonzero column;
+// a key outside [0, n) is dropped.
+template <int C>
+__device__ __forceinline__ void add_run(int* __restrict__ out, int key,
+                                        const int (&v)[C], long long n) {
+  if (key < 0 || (long long)key >= n) return;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (v[c] != 0) atomicAdd(out + (long long)key * C + c, v[c]);
+}
+
+// Adds val[j][c] into out[key[j] * C + c] for a warp's 32 x kSlots
+// consecutive slots, one atomic per nonzero column per maximal run of
+// equal keys (keys outside [0, n) dropped). Every lane of the warp calls
+// it with its own kSlots consecutive slots, lane i after lane i - 1.
+//   1. A lane folds its own slots: its first run (head) and its last run
+//      (tail) may continue into the neighbouring lanes; a run between them
+//      is complete and is added at once.
+//   2. Lane i's tail continues lane i-1's when lane i is one run whose key
+//      is lane i-1's tail key (chain). The joined tail sums carry_i =
+//      tail_i + (chain_i ? carry_{i-1} : 0) are an inclusive scan of the
+//      affine maps (tail_i, chain_i), five shuffle steps.
+//   3. A lane of more than one run adds its head, joined with the carry of
+//      lane i-1 when the keys link; a lane adds its joined tail unless
+//      lane i+1 links to it.
+template <int C>
+__device__ __forceinline__ void warp_segmented_add(
+    const int (&key)[kSlots], const int (&val)[kSlots][C],
+    int* __restrict__ out, long long n) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  int head[C], tail[C];
+  bool single = true;
+#pragma unroll
+  for (int c = 0; c < C; ++c) head[c] = tail[c] = val[0][c];
+#pragma unroll
+  for (int j = 1; j < kSlots; ++j) {
+    if (key[j] != key[j - 1]) {
+      if (single) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) head[c] = tail[c];
+      } else {
+        add_run<C>(out, key[j - 1], tail, n);
+      }
+      single = false;
+#pragma unroll
+      for (int c = 0; c < C; ++c) tail[c] = val[j][c];
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) tail[c] += val[j][c];
+    }
+  }
+  const int first = key[0], last = key[kSlots - 1];
+  const int prev_last = __shfl_up_sync(kFullMask, last, 1);
+  const bool link = lane > 0 && first == prev_last;
+  const bool next_link =
+      __shfl_down_sync(kFullMask, (int)link, 1) != 0 && lane < kWarp - 1;
+  int carry[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) carry[c] = tail[c];
+  bool chain = single && link;
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    int up[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) up[c] = __shfl_up_sync(kFullMask, carry[c], d);
+    const bool up_chain = __shfl_up_sync(kFullMask, (int)chain, d) != 0;
+    if (lane >= d) {
+      if (chain) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) carry[c] += up[c];
+      }
+      chain = chain && up_chain;
+    }
+  }
+  int before[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) before[c] = __shfl_up_sync(kFullMask, carry[c], 1);
+  if (!single) {
+    if (link) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) head[c] += before[c];
+    }
+    add_run<C>(out, first, head, n);
+  }
+  if (!next_link) add_run<C>(out, last, carry, n);
+}
+
+// The warp tiles of the run-folding kernels: a warp takes 32 x kSlots
+// consecutive slots at a time, grid-strided. The tile's first slot is the
+// same for every lane of a warp, so all 32 stay in the loop together and
+// reach the shuffles.
+__device__ __forceinline__ long long warp_tile_start() {
+  return ((long long)blockIdx.x * kThreads + (threadIdx.x & ~(kWarp - 1))) *
+         kSlots;
+}
+
+__device__ __forceinline__ long long warp_tile_stride() {
+  return (long long)gridDim.x * kThreads * kSlots;
+}
+
+__device__ __forceinline__ long long lane_slot() {
+  return (long long)(threadIdx.x & (kWarp - 1)) * kSlots;
+}
+
 __global__ void __launch_bounds__(kThreads)
 wsum_kernel(const int* __restrict__ src, const int* __restrict__ dst,
             const uint8_t* __restrict__ valid, const int* __restrict__ w,
             const int* __restrict__ core, const int* __restrict__ thresh,
-            int* __restrict__ out, long long E, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < E;
-       e += stride) {
-    if (!valid[e]) continue;
-    const int wt = w[e];
-    if (wt == 0) continue;  // a zero contribution issues no atomic
-    const int s = src[e];
-    const int d = dst[e];
-    const long long sg = wrap(s, n);
-    const long long dg = wrap(d, n);
-    if (s >= 0 && (long long)s < n &&
-        take0(core, dg, n) >= take0(thresh, sg, n))
-      atomicAdd(out + s, wt);
-    if (d >= 0 && (long long)d < n &&
-        take0(core, sg, n) >= take0(thresh, dg, n))
-      atomicAdd(out + d, wt);
+            int* __restrict__ out, long long E, long long n, bool vec) {
+  for (long long t = warp_tile_start(); t < E; t += warp_tile_stride()) {
+    const long long e0 = t + lane_slot();
+    int s[kSlots], d[kSlots], wt[kSlots];
+    bool live[kSlots];
+    load_slots(src, e0, E, vec, s);
+    load_slots(dst, e0, E, vec, d);
+    load_slots(w, e0, E, vec, wt);
+    load_slots(valid, e0, E, vec, live);
+    int to_src[kSlots][1];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      to_src[j][0] = 0;
+      if (!live[j] || wt[j] == 0) continue;  // adds 0: no atomic
+      const long long sg = wrap(s[j], n);
+      const long long dg = wrap(d[j], n);
+      if (take0(core, dg, n) >= take0(thresh, sg, n)) to_src[j][0] = wt[j];
+      if (d[j] >= 0 && (long long)d[j] < n &&
+          take0(core, sg, n) >= take0(thresh, dg, n))
+        atomicAdd(out + d[j], wt[j]);
+    }
+    warp_segmented_add<1>(s, to_src, out, n);
   }
 }
 
+// fused_removal_round's edge pass: stat_kernel<MCD_HI_DOUT>'s predicates
+// with the src-side columns folded by runs.
+__global__ void __launch_bounds__(kThreads)
+removal_round_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+                     const uint8_t* __restrict__ valid,
+                     const int* __restrict__ core,
+                     const long long* __restrict__ label,
+                     int* __restrict__ out, long long E, long long n,
+                     bool vec) {
+  for (long long t = warp_tile_start(); t < E; t += warp_tile_stride()) {
+    const long long e0 = t + lane_slot();
+    int s[kSlots], d[kSlots];
+    bool live[kSlots];
+    load_slots(src, e0, E, vec, s);
+    load_slots(dst, e0, E, vec, d);
+    load_slots(valid, e0, E, vec, live);
+    int to_src[kSlots][3];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      to_src[j][0] = to_src[j][1] = to_src[j][2] = 0;
+      if (!live[j]) continue;
+      const long long sg = wrap(s[j], n);
+      const long long dg = wrap(d[j], n);
+      const int cs = take0(core, sg, n);
+      const int cd = take0(core, dg, n);
+      const long long ls = take0(label, sg, n);
+      const long long ld = take0(label, dg, n);
+      const bool same = cs == cd;
+      to_src[j][0] = cd >= cs;
+      to_src[j][1] = cd > cs;
+      to_src[j][2] = same && ld > ls;
+      if (d[j] >= 0 && (long long)d[j] < n) {
+        int* od = out + (long long)d[j] * 3;
+        add_if(od + 0, cs >= cd);
+        add_if(od + 1, cs > cd);
+        add_if(od + 2, same && ls > ld);
+      }
+    }
+    warp_segmented_add<3>(s, to_src, out, n);
+  }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+// blocks of kThreads threads for `work` threads' worth, at most kMaxBlocks
+// (the kernels loop over the rest)
 unsigned blocks_for(long long work) {
   long long b = (work + kThreads - 1) / kThreads;
   if (b > kMaxBlocks) b = kMaxBlocks;
@@ -236,9 +450,26 @@ int coremaint_stat(const void* src, const void* dst, const void* valid,
 int coremaint_wsum(const void* src, const void* dst, const void* valid,
                    const void* w, const void* core, const void* thresh,
                    void* out, long long E, long long n, void* stream) {
-  wsum_kernel<<<blocks_for(E), kThreads, 0, (cudaStream_t)stream>>>(
+  const bool vec = aligned(src, 16) && aligned(dst, 16) && aligned(w, 16) &&
+                   aligned(valid, 4);
+  wsum_kernel<<<blocks_for((E + kSlots - 1) / kSlots), kThreads, 0,
+                (cudaStream_t)stream>>>(
       (const int*)src, (const int*)dst, (const uint8_t*)valid, (const int*)w,
-      (const int*)core, (const int*)thresh, (int*)out, E, n);
+      (const int*)core, (const int*)thresh, (int*)out, E, n, vec);
+  return (int)cudaGetLastError();
+}
+
+// fused_removal_round's edge pass: out must be zeroed [n, 3] int32 (mcd,
+// hi, dout_same); every pointer is required.
+int coremaint_removal_stats(const void* src, const void* dst,
+                            const void* valid, const void* core,
+                            const void* label, void* out, long long E,
+                            long long n, void* stream) {
+  const bool vec = aligned(src, 16) && aligned(dst, 16) && aligned(valid, 4);
+  removal_round_kernel<<<blocks_for((E + kSlots - 1) / kSlots), kThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int*)src, (const int*)dst, (const uint8_t*)valid,
+      (const int*)core, (const long long*)label, (int*)out, E, n, vec);
   return (int)cudaGetLastError();
 }
 

@@ -20,9 +20,13 @@ Each wrapper here replaces one Pallas TPU kernel of the reference
   threshold ``aux`` — the weighted h-index bisection's inner pass.
 
 On a CUDA tensor a wrapper launches its kernel from
-``csrc/coremaint.cu`` (edge-parallel, one thread per slot, int32
-``atomicAdd`` into the packed output; integer sums make any order
-bit-exact) or raises; it never falls back. On a CPU tensor it runs the
+``csrc/coremaint.cu`` (edge-parallel, int32 ``atomicAdd`` into the packed
+output; integer sums make any order bit-exact) or raises; it never falls
+back. The unit stats and the promotion pass take one thread a slot;
+``wsum`` and the removal round's edge pass take four consecutive slots a
+thread (128-bit loads) and fold the src side by runs of one source
+vertex across the warp, so a high-degree vertex's run of slots costs one
+atomic per warp instead of one per slot. On a CPU tensor it runs the
 plain version beside it (``*_plain``), which repeats the same predicates
 with ``index_add_`` pairs. The TPU kernels fold the per-vertex decision
 into the last edge block of an in-order grid; Hopper's blocks finish in
@@ -31,8 +35,9 @@ kernel after the edge pass, and count both launches.
 
 What bounds them on an H100: the bytes of the window (src, dst, valid:
 about 9 B a slot; wsum adds the 4 B weight), the vertex state read once
-and the output written once. On power-law (RMAT) graphs the random endpoint gathers and the
-atomic contention at hub vertices are the likely limit.
+and the output written once. On power-law (RMAT) graphs the random
+endpoint gathers, the dst-side atomics and, for the one-slot-a-thread
+kernels, the atomic contention at hub vertices are the limit.
 
 The kernels build on first use into the package's one CUDA library
 (``build.py``). A missing ``nvcc``, a failed build or a failed launch
@@ -72,6 +77,7 @@ B.register({
     "coremaint_removal_decide": [_P] * 4 + [_I64, _P],
     "coremaint_promotion_decide": [_P] * 3 + [_I64, _P],
     "coremaint_wsum": [_P] * 7 + [_I64, _I64, _P],
+    "coremaint_removal_stats": [_P] * 6 + [_I64, _I64, _P],
 })
 
 
@@ -238,6 +244,20 @@ def _launch_stat(src, dst, valid, core, label, n, stat, aux):
     return out
 
 
+def removal_stats(src, dst, valid, core, label, n):
+    """``fused_removal_round``'s edge pass on the card: the packed
+    ``[n, 3]`` int32 ``mcd_hi_dout`` stats from ``removal_round_kernel``,
+    equal to ``coo_stat(..., "mcd_hi_dout")``. The caller has checked the
+    inputs; this counts no launch (``fused_removal_round`` does)."""
+    out = torch.zeros((n, 3), dtype=torch.int32, device=src.device)
+    valid8 = _u8(valid)  # referenced until the launch is queued
+    B.launch("coremaint_removal_stats",
+             src.data_ptr(), dst.data_ptr(), valid8.data_ptr(),
+             core.data_ptr(), label.data_ptr(), out.data_ptr(),
+             src.shape[0], n)
+    return out
+
+
 def _wsum(src, dst, valid, core, label, n, aux, edge_w):
     """``coo_stat(stat="wsum")``; as in the reference, an empty window
     or ``n == 0`` gives zeros before the inputs are required."""
@@ -284,8 +304,9 @@ def coo_stat(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
 
     Replaces the reference's Pallas ``coo_stat`` (``_stat_kernel``, and
     ``_wsum_kernel`` for "wsum"); on the card one edge-parallel launch
-    of ``stat_kernel`` (``wsum_kernel``), bounded by the window's bytes
-    plus the endpoint gathers and hub atomics."""
+    of ``stat_kernel`` (``wsum_kernel``, which folds the src side by
+    runs), bounded by the window's bytes plus the endpoint gathers and
+    the atomics."""
     if stat == "wsum":
         return _wsum(src, dst, valid, core, label, n, aux, edge_w)
     ncols = _STATS[stat][1]  # KeyError on an unknown stat
@@ -310,7 +331,8 @@ def fused_removal_round(src: torch.Tensor, dst: torch.Tensor,
     Valid only where statistics complete locally (one device).
 
     Replaces the reference's Pallas ``fused_removal_round``; on the
-    card two launches on one stream: the ``mcd_hi_dout`` edge pass, then
+    card two launches on one stream: the ``mcd_hi_dout`` edge pass
+    (``removal_round_kernel``, the src side folded by runs), then
     ``removal_decide_kernel`` over the n vertices."""
     _check_inputs(src, dst, valid, core, label, n)
     if src.shape[0] == 0 or n == 0:
@@ -319,8 +341,7 @@ def fused_removal_round(src: torch.Tensor, dst: torch.Tensor,
                                           device=src.device)
     if src.device.type == "cpu":
         return fused_removal_round_plain(src, dst, valid, core, label, n)
-    stats = _launch_stat(src, dst, valid, core, label, n, "mcd_hi_dout",
-                         None)
+    stats = removal_stats(src, dst, valid, core, label, n)
     new_core = torch.empty_like(core)
     drop = torch.empty(n, dtype=torch.bool, device=src.device)
     B.launch("coremaint_removal_decide", stats.data_ptr(),

@@ -271,6 +271,153 @@ def test_cpu_tensors_never_launch_wsum():
     assert K.LAUNCHES == before
 
 
+# -- the run-folding edge passes: wsum and the removal round -------------
+# wsum_kernel and removal_round_kernel take 4 consecutive slots a thread
+# (128-bit loads when the columns are 16-byte aligned) and join runs of one
+# src across the warp's 128 slots; a block holds 1,024 slots and one sweep
+# of the grid 8,448 x 1,024 (csrc/coremaint.cu kMaxBlocks).
+SWEEP = 8448 * 1024
+
+
+def _runs(rng, e, lengths):
+    """Sorted src keys for ``e`` slots in runs whose lengths are drawn
+    from ``lengths`` (then cut at ``e``)."""
+    lens = rng.choice(lengths, size=2 * e // int(np.mean(lengths)) + 16)
+    return np.repeat(np.arange(len(lens)), lens)[:e]
+
+
+def _run_window(kind, seed, e=None):
+    """``(n, src, dst, valid, w, core, thresh, label)`` on the card:
+
+    * ``hub``: sorted by src, vertex 7 owning one run of 10,000 slots
+      (longer than a block's 1,024), the rest short runs;
+    * ``runs``: sorted, run lengths 1-5, 100-200 and 900-1,500, so runs
+      cross lane, warp (128 slots) and block boundaries;
+    * ``grid_stride``: sorted, 2.2 sweeps of the grid, with a 6,000-slot
+      run across each sweep boundary;
+    * ``dirty``: ``runs`` with dead slots, zero weights, and src and dst
+      outside [0, n) (n, n + 5, -1, -n, -3n) inside and as whole runs;
+    * ``shuffled``: ``hub``'s slots in a seeded random order (no runs);
+    * ``ragged``: ``runs`` cut to ``e`` slots.
+    """
+    rng = np.random.default_rng(seed)
+    n = 5000
+    if kind in ("hub", "shuffled"):
+        e = 60_000
+        keys = np.sort(rng.integers(0, n, size=e))
+        keys[20_000:30_000] = 7
+        keys = np.sort(keys)
+    elif kind == "grid_stride":
+        e = int(2.2 * SWEEP)
+        n = 1 << 20
+        keys = _runs(rng, e, np.arange(1, 400)) % n
+        keys = np.sort(keys)
+        for b in (SWEEP, 2 * SWEEP):
+            keys[b - 3000:b + 3000] = keys[b - 3000]
+    else:
+        e = e or 200_000
+        lengths = np.concatenate([np.arange(1, 6), np.arange(100, 201),
+                                  np.arange(900, 1501)])
+        keys = _runs(rng, e, lengths) % n
+    src = keys.astype(np.int32)
+    dst = rng.integers(0, n, size=e).astype(np.int32)
+    valid = rng.random(e) < 0.85
+    w = rng.integers(1, 6, size=e).astype(np.int32)
+    if kind == "dirty":
+        w[rng.random(e) < 0.1] = 0
+        bad = np.array([n, n + 5, -1, -n, -3 * n], dtype=np.int32)
+        # single slots inside runs, and whole runs
+        at = rng.choice(e, size=e // 50, replace=False)
+        src[at] = rng.choice(bad, size=len(at))
+        dst[rng.choice(e, size=e // 50, replace=False)] = rng.choice(
+            bad, size=e // 50)
+        for start in rng.choice(e - 600, size=20, replace=False):
+            src[start:start + rng.integers(1, 600)] = rng.choice(bad)
+    if kind == "shuffled":
+        order = rng.permutation(e)
+        src, dst, valid, w = src[order], dst[order], valid[order], w[order]
+    core = rng.integers(0, 5, size=n).astype(np.int32)
+    thresh = rng.integers(0, 8, size=n).astype(np.int32)
+    label = (rng.permutation(n).astype(np.int64) - n // 2) << 20
+    dev = _card()
+    return (n, *(torch.from_numpy(x).to(dev)
+                 for x in (src, dst, valid, w, core, thresh, label)))
+
+
+def _check_run_folding(n, src, dst, valid, w, core, thresh, label):
+    """wsum and fused_removal_round against their plain versions on one
+    window (tolerance 0), each launching its kernels."""
+    before = dict(K.LAUNCHES)
+    got = _wsum(src, dst, valid, w, core, thresh, n)
+    rounds = K.fused_removal_round(src, dst, valid, core, label, n)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["coo_stat[wsum]"] == before["coo_stat[wsum]"] + 1
+    assert (K.LAUNCHES["fused_removal_round"]
+            == before["fused_removal_round"] + 2)
+    assert torch.equal(got, K.wsum_plain(src, dst, valid, w, core, thresh,
+                                         n))
+    want = K.fused_removal_round_plain(src, dst, valid, core, label, n)
+    for g_, w_ in zip(rounds, want):
+        assert g_.dtype == w_.dtype and torch.equal(g_, w_)
+    # the old one-slot-a-thread edge pass gives the same stats
+    old = K.coo_stat(src, dst, valid, core, label, n, "mcd_hi_dout")
+    assert torch.equal(torch.stack(rounds[:3], 1), old)
+
+
+@pytest.mark.parametrize("kind", ["hub", "runs", "grid_stride", "dirty",
+                                  "shuffled"])
+def test_wsum_and_fused_removal_kernels_match_plain(kind):
+    _check_run_folding(*_run_window(kind, seed=len(kind)))
+
+
+@pytest.mark.parametrize("e", [1, 2, 3, 5, 6, 7, 4097, 200_001])
+def test_wsum_and_fused_removal_kernels_ragged_windows(e):
+    """E % 4 != 0 (the last group loads slot by slot) and E < 4."""
+    _check_run_folding(*_run_window("ragged", seed=e, e=e))
+
+
+def _at_offset(x, k):
+    """``x`` as a contiguous view ``k`` elements into a fresh buffer: for
+    k in 1-3 its ``data_ptr`` is not 16-byte (int32) or 4-byte (bytes)
+    aligned."""
+    buf = torch.zeros(x.shape[0] + k, dtype=x.dtype, device=x.device)
+    buf[k:] = x
+    return buf[k:]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("which", ["all", "src", "valid", "w"])
+def test_wsum_and_fused_removal_kernels_unaligned_views(offset, which):
+    """Views whose base is not aligned take the kernels' scalar loads:
+    every column shifted, or only one of them."""
+    n, src, dst, valid, w, core, thresh, label = _run_window(
+        "dirty", seed=offset, e=50_003)
+    cols = dict(src=src, dst=dst, valid=valid, w=w)
+    for name in cols:
+        if which in ("all", name):
+            cols[name] = _at_offset(cols[name], offset)
+    assert cols[which if which != "all" else "src"].data_ptr() % 16
+    _check_run_folding(n, cols["src"], cols["dst"], cols["valid"],
+                       cols["w"], core, thresh, label)
+
+
+def test_wsum_and_fused_removal_kernels_run_the_designed_instructions():
+    """wsum_kernel and removal_round_kernel load slot columns 128 bits at
+    a time (LDG.E.128) and join runs across the warp by shuffles (SHFL);
+    the one-slot-a-thread stat_kernel<MCD_HI_DOUT> has no 128-bit load,
+    so a scalar path cannot pass for the redesigned ones."""
+    _card()
+    sass = _sass_by_function(build_lib.build())
+    wide = re.compile(r"LDG\.E\S*\.128")
+    for kernel in ("wsum_kernel", "removal_round_kernel"):
+        fns = {n: t for n, t in sass.items() if kernel in n}
+        assert len(fns) == 1, (kernel, sorted(sass))
+        text = next(iter(fns.values()))
+        assert wide.search(text) and "SHFL" in text, kernel
+    old = [t for n, t in sass.items() if "stat_kernelILi0E" in n]
+    assert len(old) == 1 and not wide.search(old[0])
+
+
 # -- ELL, FM and attention kernels ---------------------------------------
 
 def _ell(n, d, seed, neg=False):

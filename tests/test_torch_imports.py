@@ -55,7 +55,10 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_burst.py"],
+    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "scripts" / f for f in ("profile_burst.py",
+                                      "time_attention.py",
+                                      "time_coremaint.py")],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_import_in_source(path):

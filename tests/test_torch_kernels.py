@@ -246,6 +246,42 @@ def test_wsum_unit_weights_at_core_is_mcd():
     assert torch.equal(got, mcd)
 
 
+def _run_inputs(n, e, seed, shuffle):
+    """The windows the card's run-folding kernels are tested on, small:
+    sorted by src, one hub run of ``e // 3`` slots, dead slots, zero
+    weights, and src and dst outside [0, n) inside runs; ``shuffle`` puts
+    the slots in a random order."""
+    src, dst, valid, core, label, w, thresh = _wsum_inputs(n, e, seed)
+    rng = np.random.default_rng(seed + 2)
+    src = np.sort(src)
+    src[e // 3: 2 * e // 3] = 3
+    src = np.sort(src)
+    w[rng.random(e) < 0.1] = 0
+    bad = np.array([n, n + 5, -1, -n, -3 * n], dtype=np.int32)
+    src[rng.choice(e, e // 20, replace=False)] = rng.choice(bad, e // 20)
+    dst[rng.choice(e, e // 20, replace=False)] = rng.choice(bad, e // 20)
+    if shuffle:
+        order = rng.permutation(e)
+        src, dst, valid, w = src[order], dst[order], valid[order], w[order]
+    return src, dst, valid, core, label, w, thresh
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("fn", ["wsum", "fused_removal_round"])
+def test_run_windows_match_pallas(fn, shuffle):
+    n = 60
+    src, dst, valid, core, label, w, thresh = _run_inputs(n, 700, 11,
+                                                          shuffle)
+    if fn == "wsum":
+        got, want = _wsum_both(src, dst, valid, core, label, w, thresh, n)
+        _eq(got, want)
+        return
+    arrays = (src, dst, valid, core, label)
+    for g_, w_ in zip(_port(K.fused_removal_round, arrays, n),
+                      _ref(ref.fused_removal_round, arrays, n)):
+        _eq(g_, w_)
+
+
 def test_plain_versions_need_no_build():
     """The CPU path never touches nvcc or the CUDA library, and launches
     nothing."""
