@@ -21,18 +21,23 @@ Phases:
      between the two backends;
   3. each kernel against its plain version on the main path's state
      (the RMAT graph of phase 4: window of ~2^24 slots, n = 2^21), with
-     0 mismatches required, timed with CUDA events beside its byte bound;
-     ``coo_stat[wsum]`` on the weighted maintainer's state of phase 5;
+     0 mismatches required, timed with CUDA events beside its byte bound
+     (``din`` and ``same_in`` under a 50% random mask); ``coo_stat[wsum]``
+     on the weighted maintainer's state of phase 5;
      ``fused_removal_round`` and ``coo_stat[wsum]`` also on a shuffled
      copy of their window (one seeded random slot order, no runs of one
      src), held to their plain versions and to the sorted window's
-     result, and the removal round's edge pass (``removal_round_kernel``)
-     timed beside the one-slot-a-thread ``stat_kernel<MCD_HI_DOUT>``
-     (``coo_stat[mcd_hi_dout]``) on both layouts, the two equal;
+     result;
   4. the main path on ``rmat(21, 16_000_000)``: a 100,000-edge removal
      burst, its re-insertion, then mixed batches of 100,000 edits; per
      batch the wall time, round counts and kernel launches; at the end
-     the cores against a fresh peel and the k-order certificate;
+     the cores against a fresh peel and the k-order certificate. The
+     masks of the burst pair's ``din`` and ``same_in`` calls are recorded
+     (``coremaint.record_masks``, device copies, no sync); after the
+     batches each mask's popcount and share of touched live slots are
+     printed, and ``din`` and ``same_in`` are held to their plain
+     versions and timed on phase 3's window under the median-touch and
+     the max-touch mask (``path_mask_*`` keys of their rows);
   5. the weighted main path on the same graph with weights 1-5:
      ``from_graph(weighted=True, weights=...)``, the same burst removed
      and re-inserted with its own weights, then phase 4's mixed batches
@@ -362,9 +367,9 @@ class WeightMirror:
 
 def _stat_bytes(e: int, e_valid: int, n: int, stat: str) -> int:
     """Bytes a stat pass must move: the window's valid mask (1 B a slot),
-    src and dst of the live slots only (the kernel skips a dead slot
-    before it reads the endpoints); core, label (when a predicate reads
-    it) and aux (when it reads one) once; the packed int32 output once."""
+    src and dst of the live slots only (a dead slot's endpoints are not
+    needed); core, label (when a predicate reads it) and aux (when it
+    reads one) once; the packed int32 output once."""
     from repro_torch.kernels.coremaint import _LABEL_STATS, _STATS
     reads_label = stat in _LABEL_STATS
     reads_aux = stat in ("din", "same_in")
@@ -455,20 +460,8 @@ def phase_kernels(device, m, iters: int, seed: int = 0) -> list:
               "phase 3 fused_removal_round (shuffled): != plain or sorted")
     rows[-1]["shuffled_ms"] = time_ms(
         lambda: K.fused_removal_round(*sargs), iters, device)
-    edge = {}
-    for layout, a in (("sorted", args), ("shuffled", sargs)):
-        check(torch.equal(K.removal_stats(*a),
-                          K.coo_stat(*a, "mcd_hi_dout")),
-              f"phase 3 removal edge pass ({layout}) != coo_stat[mcd_hi_dout]")
-        edge[layout] = {
-            "removal_round_kernel": time_ms(lambda: K.removal_stats(*a),
-                                            iters, device),
-            "stat_kernel<MCD_HI_DOUT>": time_ms(
-                lambda: K.coo_stat(*a, "mcd_hi_dout"), iters, device)}
-    rows[-1]["edge_pass_ms"] = edge
     log(f"phase 3 fused_removal_round shuffled: mismatches=0 (== sorted) "
-        f"kernel_ms={rows[-1]['shuffled_ms']:.4f}; edge pass ms "
-        f"{json.dumps(edge)}")
+        f"kernel_ms={rows[-1]['shuffled_ms']:.4f}")
     record("fused_promotion_stats", "fused_promotion_stats",
            K.fused_promotion_stats(*args),
            K.fused_promotion_stats_plain(*args),
@@ -541,8 +534,10 @@ def certificate_ok(m) -> bool:
     return bool(((hi + dout) <= m.core).all())
 
 
-def phase_main(device, m, g, sample, stream) -> dict:
-    """The main path: burst removal, its re-insertion, mixed batches."""
+def phase_main(device, m, g, sample, stream) -> tuple:
+    """The main path: burst removal, its re-insertion, mixed batches.
+    Returns the launch counts and the ``(stat, mask)`` list that
+    ``record_masks`` kept over the burst pair."""
     import torch
     from repro_torch.core.decomposition import peel_decomposition
     from repro_torch.kernels import coremaint as K
@@ -554,7 +549,8 @@ def phase_main(device, m, g, sample, stream) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    for name, ins, rm in batches:
+
+    def run(name, ins, rm):
         before = dict(K.LAUNCHES)
         sync(device)
         t0 = time.perf_counter()
@@ -569,6 +565,12 @@ def phase_main(device, m, g, sample, stream) -> dict:
             f"n_removed={int(st.n_removed)} n_inserted={int(st.n_inserted)} "
             f"n_dropped={int(st.n_dropped)} n_promoted={int(st.n_promoted)} "
             f"v_plus={int(st.v_plus)} launches={json.dumps(moved)}")
+
+    with K.record_masks() as recorded:  # the burst pair
+        for batch in batches[:2]:
+            run(*batch)
+    for batch in batches[2:]:
+        run(*batch)
     launches = dict(K.LAUNCHES)
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0 or not on_card,
@@ -585,7 +587,68 @@ def phase_main(device, m, g, sample, stream) -> dict:
         "phase 4: live edge count")
     log(f"phase 4: cores == fresh peel of the final live edge set, "
         f"certificate holds ({time.perf_counter() - t0:.1f} s)")
-    return launches
+    return launches, recorded
+
+
+def phase_path_masks(device, snap, recorded, rows, iters: int) -> None:
+    """``din`` and ``same_in`` under the masks phase 4's burst pair passed
+    them (``recorded``), on phase 3's window (``snap``): each mask's
+    popcount and share of touched live slots (either endpoint in the
+    mask); both kernels held to their plain versions (0 mismatches) and
+    timed under the median-touch and the max-touch mask. Adds
+    ``path_mask_ms``, ``path_mask_bound_ms`` and ``path_mask_density`` to
+    their rows of ``rows``."""
+    import torch
+    from repro_torch.kernels import coremaint as K
+
+    src, dst, valid, core, label = snap
+    n, e = core.shape[0], src.shape[0]
+    live = valid != 0
+    e_valid = int(live.sum())
+    s64, d64 = src.long(), dst.long()
+    by_name = {r["name"]: r for r in rows}
+    masks_all = [a for _, a in recorded if a is not None]
+    check(masks_all, "phase 4: the burst pair recorded no mask")
+    copy_ms = time_ms(lambda: masks_all[0].clone(), iters, device)
+    log(f"phase 4 recorder: {len(recorded)} mask copies of {n} B, "
+        f"{copy_ms:.4f} ms each on the device, {copy_ms * len(recorded):.4f} "
+        f"ms in all inside the burst pair's walls")
+    for stat in K._MASK_STATS:
+        masks = [a.bool() for s, a in recorded if s == stat and a is not None]
+        check(masks, f"phase 4: no {stat} call in the burst pair")
+        pop = [int(a.sum()) for a in masks]
+        touched = [int(((a[s64] | a[d64]) & live).sum()) / e_valid
+                   for a in masks]
+        order = sorted(range(len(masks)), key=touched.__getitem__)
+        row = by_name[f"coo_stat[{stat}]"]
+        row["path_mask_density"] = dict(
+            calls=len(masks), popcount_median=float(np.median(pop)),
+            popcount_max=max(pop), touched_median=float(np.median(touched)),
+            touched_max=max(touched))
+        row["path_mask_ms"], row["path_mask_bound_ms"] = {}, {}
+        lab = label if stat in K._LABEL_STATS else None
+        for kind, i in (("median", order[(len(order) - 1) // 2]),
+                        ("max", order[-1])):
+            args = (src, dst, valid, core, lab, n, stat, masks[i])
+            check(torch.equal(K.coo_stat(*args), K.coo_stat_plain(*args)),
+                  f"phase 4 {stat} under the {kind}-touch path mask: != "
+                  f"plain")
+            row["path_mask_ms"][kind] = time_ms(lambda: K.coo_stat(*args),
+                                                iters, device)
+            # the window and the mask once, the core (and label) of the
+            # endpoints of touched slots once, the output once
+            hit = (masks[i][s64] | masks[i][d64]) & live
+            verts = int(torch.unique(torch.cat([s64[hit], d64[hit]])).numel())
+            nbytes = (e + 8 * e_valid + n + 4 * n
+                      + verts * (4 + 8 * (lab is not None)))
+            row["path_mask_bound_ms"][kind] = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"phase 4 {stat} path mask ({kind} touch): popcount={pop[i]} "
+                f"touched={touched[i]:.6f} mismatches=0 "
+                f"kernel_ms={row['path_mask_ms'][kind]:.4f} "
+                f"bound_ms={row['path_mask_bound_ms'][kind]:.4f} "
+                f"(50% mask: {row['ms']:.4f})")
+        log(f"phase 4 {stat} path masks: {json.dumps(row['path_mask_density'])}"
+            f" popcounts={pop} touched={[round(x, 6) for x in touched]}")
 
 
 def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> dict:
@@ -1066,6 +1129,9 @@ def main() -> int:
 
     # ---- phase 3 --------------------------------------------------------
     rows = phase_kernels(device, m, ITERS)
+    w = m._window(0)
+    snap = tuple(x.clone() for x in (m.src[:w], m.dst[:w], m.valid[:w],
+                                     m.core, m.label))
 
     # ---- phase 4 --------------------------------------------------------
     rng = np.random.default_rng(0)
@@ -1074,7 +1140,10 @@ def main() -> int:
     stream = list(mixed_stream(g, MIXED_BATCHES, MIXED_SIZE, seed=0))
     log(f"phase 4 mixed_stream: {MIXED_BATCHES} batches of {MIXED_SIZE} "
         f"sampled in {time.perf_counter() - t0:.1f} s (host set-up)")
-    launches = phase_main(device, m, g, g.edge_array()[pick], stream)
+    launches, recorded = phase_main(device, m, g, g.edge_array()[pick],
+                                    stream)
+    phase_path_masks(device, snap, recorded, rows, ITERS)
+    del snap, recorded
     for r in rows:
         r["launches"] = launches[r["name"]]
         # the unified engine fuses the mcd_hi_dout / hi_dout passes into

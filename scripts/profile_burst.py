@@ -19,7 +19,11 @@ its own weights.
    pair's removal and re-insertion wall times, ending in a device sync.
 2. One more pair on the kernel maintainer under ``torch.profiler``:
    wall time, device busy time, idle share, and the device time of the
-   PyTorch ops and of the kernels that take most of it.
+   PyTorch ops and of the kernels that take most of it; the device time
+   of the kernels launched inside ``order.place_block`` (each call
+   wrapped in a ``record_function`` span for this pair only) and of the
+   core-maintenance edge passes (``csrc/coremaint.cu``'s edge kernels),
+   each with its share of the busy time.
 
 Prints the card's ``nvidia-smi`` name and power limit first. Exits
 non-zero without a CUDA device.
@@ -27,6 +31,7 @@ non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +45,9 @@ SCALE = 21
 EDGES = 16_000_000
 BURST = 100_000
 MAX_WEIGHT = 5
+SPAN = "order.place_block"
+# the core-maintenance edge kernels of csrc/coremaint.cu
+EDGE_KERNELS = re.compile(r"(unit_stat|removal_round|wsum)_kernel")
 
 
 def main() -> int:
@@ -52,8 +60,10 @@ def main() -> int:
         print("profile_burst: no CUDA device", file=sys.stderr)
         return 2
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.core import insert as core_insert
+    from repro_torch.core import remove as core_remove
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.graph.generators import rmat
     from repro_torch.kernels import build as KB
@@ -109,24 +119,45 @@ def main() -> int:
               f"{' weighted' if args.weighted else ''}: "
               f"remove_s={rm_s:.4f} insert_s={ins_s:.4f}", flush=True)
 
+    place_block = core_insert.place_block
+
+    def spanned(*a, **kw):
+        with record_function(SPAN):
+            return place_block(*a, **kw)
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        K.reset_launches()
-        burst_pair(kern)
-        wall = time.perf_counter() - t0
+        core_insert.place_block = core_remove.place_block = spanned
+        try:
+            t0 = time.perf_counter()
+            K.reset_launches()
+            burst_pair(kern)
+            wall = time.perf_counter() - t0
+        finally:
+            core_insert.place_block = core_remove.place_block = place_block
     print(f"profile launches: "
           f"{ {k: v for k, v in K.LAUNCHES.items() if v} }")
     # device kernels carry the device time; host-side ops (aten::*) show
     # the device time of the kernels they launched, so they are listed
     # apart and never summed with the kernels
-    timed = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    averages = prof.key_averages()
+    timed = [e for e in averages if e.self_device_time_total > 0
+             and e.key != SPAN]  # the span's own device-timeline range
     kernels = [e for e in timed if e.device_type == DeviceType.CUDA]
     ops = [e for e in timed if e.device_type != DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"profile (cuda burst pair under the profiler): wall_s={wall:.4f} "
           f"device_busy_s={busy_us / 1e6:.4f} "
           f"idle_share={1 - busy_us / 1e6 / wall:.3f}")
+    # the span's host event carries the device time of the kernels
+    # launched inside it
+    span_us = sum(e.device_time_total for e in averages
+                  if e.key == SPAN and e.device_type != DeviceType.CUDA)
+    edge_us = sum(e.self_device_time_total for e in kernels
+                  if EDGE_KERNELS.search(e.key))
+    for name, us in ((SPAN, span_us), ("edge passes", edge_us)):
+        print(f"profile share {name}: {us / 1e3:.3f} ms "
+              f"{us / busy_us:.3f} of device busy")
     for kind, evs, top in (("op", ops, 8), ("kernel", kernels, 10)):
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
             print(f"profile {kind:6s} "

@@ -22,22 +22,25 @@ Each wrapper here replaces one Pallas TPU kernel of the reference
 On a CUDA tensor a wrapper launches its kernel from
 ``csrc/coremaint.cu`` (edge-parallel, int32 ``atomicAdd`` into the packed
 output; integer sums make any order bit-exact) or raises; it never falls
-back. The unit stats and the promotion pass take one thread a slot;
-``wsum`` and the removal round's edge pass take four consecutive slots a
-thread (128-bit loads) and fold the src side by runs of one source
-vertex across the warp, so a high-degree vertex's run of slots costs one
-atomic per warp instead of one per slot. On a CPU tensor it runs the
-plain version beside it (``*_plain``), which repeats the same predicates
-with ``index_add_`` pairs. The TPU kernels fold the per-vertex decision
-into the last edge block of an in-order grid; Hopper's blocks finish in
-any order, so the two fused wrappers launch a second tiny per-vertex
-kernel after the edge pass, and count both launches.
+back. Every edge pass takes four consecutive slots a thread (128-bit
+loads) and folds the src side by runs of one source vertex across the
+warp, so a high-degree vertex's run of slots costs one atomic per warp
+instead of one per slot. The unit stats (and the promotion pass) gather
+endpoint state lazily: ``din`` and ``same_in`` pack their mask into a
+bit vector (a first launch), read the bit of both endpoints first and
+skip a slot that touches no masked vertex, and labels are read only for
+same-core slots. ``coo_stat(stat="mcd_hi_dout")`` is the removal round's
+edge pass. On a CPU tensor a wrapper runs the plain version beside it
+(``*_plain``), which repeats the same predicates with ``index_add_``
+pairs. The TPU kernels fold the per-vertex decision into the last edge
+block of an in-order grid; Hopper's blocks finish in any order, so the
+two fused wrappers launch a second tiny per-vertex kernel after the edge
+pass, and count both launches.
 
 What bounds them on an H100: the bytes of the window (src, dst, valid:
 about 9 B a slot; wsum adds the 4 B weight), the vertex state read once
 and the output written once. On power-law (RMAT) graphs the random
-endpoint gathers, the dst-side atomics and, for the one-slot-a-thread
-kernels, the atomic contention at hub vertices are the limit.
+endpoint gathers and the dst-side atomics are the limit.
 
 The kernels build on first use into the package's one CUDA library
 (``build.py``). A missing ``nvcc``, a failed build or a failed launch
@@ -45,6 +48,7 @@ raises ``RuntimeError``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -63,27 +67,46 @@ _STATS = {
 # the stats whose predicates read the k-order label; the others take
 # ``label=None``
 _LABEL_STATS = ("mcd_hi_dout", "hi_dout", "din")
+# the stats gated by a per-vertex mask (``aux``)
+_MASK_STATS = ("din", "same_in")
 
 # kernel launches, counted where each kernel is launched: one entry per
-# coo_stat stat (each is its own instance of the templated kernel) and
-# one per fused wrapper, which launches two kernels per call
+# coo_stat stat (each is its own kernel instance; din and same_in launch
+# the mask packing first, two a call) and one per fused wrapper, which
+# launches two kernels per call
 LAUNCHES = {**{f"coo_stat[{s}]": 0 for s in (*_STATS, "wsum")},
             "fused_removal_round": 0, "fused_promotion_stats": 0}
 
 # the C functions of csrc/coremaint.cu and their argument types
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 B.register({
-    "coremaint_stat": [_P] * 7 + [_I64, _I64, ctypes.c_int, _P],
+    "coremaint_stat": [_P] * 8 + [_I64, _I64, ctypes.c_int, _P],
     "coremaint_removal_decide": [_P] * 4 + [_I64, _P],
     "coremaint_promotion_decide": [_P] * 3 + [_I64, _P],
     "coremaint_wsum": [_P] * 7 + [_I64, _I64, _P],
-    "coremaint_removal_stats": [_P] * 6 + [_I64, _I64, _P],
 })
+
+# (stat, mask) of the masked coo_stat calls inside ``record_masks``
+_recorded: Optional[list] = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def record_masks():
+    """Inside the block, every ``coo_stat`` call of a masked stat
+    (``din``, ``same_in``) appends ``(stat, a copy of its mask)`` to the
+    list this yields; ``None`` where it was called without one. The copy
+    is made on the mask's device and syncs nothing."""
+    global _recorded
+    outer, _recorded = _recorded, []
+    try:
+        yield _recorded
+    finally:
+        _recorded = outer
 
 
 def _u8(mask: torch.Tensor) -> torch.Tensor:
@@ -236,25 +259,15 @@ def _launch_stat(src, dst, valid, core, label, n, stat, aux):
     # converted temporary freed earlier could hand its block to the next
     valid8 = _u8(valid)
     aux8 = _u8(aux) if aux is not None else None
+    # the masked stats' scratch: the mask packed 32 vertices a word
+    bits = (torch.empty((n + 31) // 32, dtype=torch.int32, device=src.device)
+            if stat in _MASK_STATS else None)
     B.launch("coremaint_stat",
              src.data_ptr(), dst.data_ptr(), valid8.data_ptr(),
              core.data_ptr(), label.data_ptr() if label is not None else None,
-             aux8.data_ptr() if aux8 is not None else None, out.data_ptr(),
+             aux8.data_ptr() if aux8 is not None else None,
+             bits.data_ptr() if bits is not None else None, out.data_ptr(),
              src.shape[0], n, code)
-    return out
-
-
-def removal_stats(src, dst, valid, core, label, n):
-    """``fused_removal_round``'s edge pass on the card: the packed
-    ``[n, 3]`` int32 ``mcd_hi_dout`` stats from ``removal_round_kernel``,
-    equal to ``coo_stat(..., "mcd_hi_dout")``. The caller has checked the
-    inputs; this counts no launch (``fused_removal_round`` does)."""
-    out = torch.zeros((n, 3), dtype=torch.int32, device=src.device)
-    valid8 = _u8(valid)  # referenced until the launch is queued
-    B.launch("coremaint_removal_stats",
-             src.data_ptr(), dst.data_ptr(), valid8.data_ptr(),
-             core.data_ptr(), label.data_ptr(), out.data_ptr(),
-             src.shape[0], n)
     return out
 
 
@@ -304,22 +317,26 @@ def coo_stat(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
 
     Replaces the reference's Pallas ``coo_stat`` (``_stat_kernel``, and
     ``_wsum_kernel`` for "wsum"); on the card one edge-parallel launch
-    of ``stat_kernel`` (``wsum_kernel``, which folds the src side by
-    runs), bounded by the window's bytes plus the endpoint gathers and
-    the atomics."""
+    of ``unit_stat_kernel`` (``removal_round_kernel`` for
+    "mcd_hi_dout", ``wsum_kernel`` for "wsum"; "din" and "same_in"
+    first pack their mask with ``pack_mask_kernel``), each folding the
+    src side by runs, bounded by the window's bytes plus the endpoint
+    gathers and the atomics."""
     if stat == "wsum":
         return _wsum(src, dst, valid, core, label, n, aux, edge_w)
     ncols = _STATS[stat][1]  # KeyError on an unknown stat
     _check_inputs(src, dst, valid, core, label, n, aux,
                   needs_label=stat in _LABEL_STATS)
+    if _recorded is not None and stat in _MASK_STATS:
+        _recorded.append((stat, None if aux is None else aux.clone()))
     if src.shape[0] == 0 or n == 0:
         return torch.zeros((n, ncols), dtype=torch.int32, device=src.device)
     if src.device.type == "cpu":
         return coo_stat_plain(src, dst, valid, core, label, n, stat, aux)
-    if stat in ("din", "same_in") and aux is None:
+    if stat in _MASK_STATS and aux is None:
         aux = torch.zeros(n, dtype=torch.bool, device=src.device)
     out = _launch_stat(src, dst, valid, core, label, n, stat, aux)
-    LAUNCHES[f"coo_stat[{stat}]"] += 1
+    LAUNCHES[f"coo_stat[{stat}]"] += 2 if stat in _MASK_STATS else 1
     return out
 
 
@@ -332,8 +349,8 @@ def fused_removal_round(src: torch.Tensor, dst: torch.Tensor,
 
     Replaces the reference's Pallas ``fused_removal_round``; on the
     card two launches on one stream: the ``mcd_hi_dout`` edge pass
-    (``removal_round_kernel``, the src side folded by runs), then
-    ``removal_decide_kernel`` over the n vertices."""
+    (``removal_round_kernel``), then ``removal_decide_kernel`` over the
+    n vertices."""
     _check_inputs(src, dst, valid, core, label, n)
     if src.shape[0] == 0 or n == 0:
         z = torch.zeros(n, dtype=torch.int32, device=src.device)
@@ -341,7 +358,8 @@ def fused_removal_round(src: torch.Tensor, dst: torch.Tensor,
                                           device=src.device)
     if src.device.type == "cpu":
         return fused_removal_round_plain(src, dst, valid, core, label, n)
-    stats = removal_stats(src, dst, valid, core, label, n)
+    stats = _launch_stat(src, dst, valid, core, label, n, "mcd_hi_dout",
+                         None)
     new_core = torch.empty_like(core)
     drop = torch.empty(n, dtype=torch.bool, device=src.device)
     B.launch("coremaint_removal_decide", stats.data_ptr(),
@@ -358,8 +376,9 @@ def fused_promotion_stats(src: torch.Tensor, dst: torch.Tensor,
     statistics complete locally (one device).
 
     Replaces the reference's Pallas ``fused_promotion_stats``; on the
-    card two launches on one stream: the ``hi_dout`` edge pass, then
-    ``promotion_decide_kernel`` over the n vertices."""
+    card two launches on one stream: the ``hi_dout`` edge pass
+    (``unit_stat_kernel<HI_DOUT>``), then ``promotion_decide_kernel``
+    over the n vertices."""
     _check_inputs(src, dst, valid, core, label, n)
     if src.shape[0] == 0 or n == 0:
         z = torch.zeros(n, dtype=torch.int32, device=src.device)

@@ -78,7 +78,9 @@ def test_coo_stat_kernel_matches_plain(stat, n, e):
     before = K.LAUNCHES[f"coo_stat[{stat}]"]
     got = K.coo_stat(src, dst, valid, core, label, n, stat, a)
     torch.cuda.synchronize()
-    assert K.LAUNCHES[f"coo_stat[{stat}]"] == before + 1
+    # din and same_in pack their mask first: two launches
+    assert K.LAUNCHES[f"coo_stat[{stat}]"] == before + 1 + (
+        stat in K._MASK_STATS)
     want = K.coo_stat_plain(src, dst, valid, core, label, n, stat, a)
     assert got.dtype == want.dtype and torch.equal(got, want)
 
@@ -271,11 +273,12 @@ def test_cpu_tensors_never_launch_wsum():
     assert K.LAUNCHES == before
 
 
-# -- the run-folding edge passes: wsum and the removal round -------------
-# wsum_kernel and removal_round_kernel take 4 consecutive slots a thread
-# (128-bit loads when the columns are 16-byte aligned) and join runs of one
-# src across the warp's 128 slots; a block holds 1,024 slots and one sweep
-# of the grid 8,448 x 1,024 (csrc/coremaint.cu kMaxBlocks).
+# -- the run-folding edge passes: wsum, the removal round, the unit stats --
+# wsum_kernel, removal_round_kernel and unit_stat_kernel take 4 consecutive
+# slots a thread (128-bit loads when the columns are 16-byte aligned) and
+# join runs of one src across the warp's 128 slots; a block holds 1,024
+# slots and one sweep of the grid 8,448 x 1,024 (csrc/coremaint.cu
+# kMaxBlocks).
 SWEEP = 8448 * 1024
 
 
@@ -344,29 +347,56 @@ def _run_window(kind, seed, e=None):
                  for x in (src, dst, valid, w, core, thresh, label)))
 
 
+def _masks(n, src):
+    """The masks din and same_in are tested under: none set, the vertex
+    with the most slots as src, about 1% and 50% of the vertices at
+    random, all set."""
+    ok = (src >= 0) & (src < n)
+    hub = torch.zeros(n, dtype=torch.bool, device=src.device)
+    hub[torch.bincount(src[ok].long(), minlength=n).argmax()] = True
+    r = torch.rand(n, device=src.device,
+                   generator=torch.Generator(src.device).manual_seed(13))
+    return {"empty": torch.zeros_like(hub), "hub": hub, "1%": r < 0.01,
+            "50%": r < 0.5, "all": torch.ones_like(hub)}
+
+
 def _check_run_folding(n, src, dst, valid, w, core, thresh, label):
-    """wsum and fused_removal_round against their plain versions on one
-    window (tolerance 0), each launching its kernels."""
+    """wsum, fused_removal_round, fused_promotion_stats and every unit
+    stat of coo_stat (din and same_in under each of ``_masks``) against
+    their plain versions on one window (tolerance 0), each launching its
+    kernels."""
     before = dict(K.LAUNCHES)
     got = _wsum(src, dst, valid, w, core, thresh, n)
-    rounds = K.fused_removal_round(src, dst, valid, core, label, n)
+    args = (src, dst, valid, core, label, n)
+    rounds = K.fused_removal_round(*args)
+    promo = K.fused_promotion_stats(*args)
     torch.cuda.synchronize()
     assert K.LAUNCHES["coo_stat[wsum]"] == before["coo_stat[wsum]"] + 1
-    assert (K.LAUNCHES["fused_removal_round"]
-            == before["fused_removal_round"] + 2)
+    for fn in ("fused_removal_round", "fused_promotion_stats"):
+        assert K.LAUNCHES[fn] == before[fn] + 2
     assert torch.equal(got, K.wsum_plain(src, dst, valid, w, core, thresh,
                                          n))
-    want = K.fused_removal_round_plain(src, dst, valid, core, label, n)
-    for g_, w_ in zip(rounds, want):
-        assert g_.dtype == w_.dtype and torch.equal(g_, w_)
-    # the old one-slot-a-thread edge pass gives the same stats
-    old = K.coo_stat(src, dst, valid, core, label, n, "mcd_hi_dout")
-    assert torch.equal(torch.stack(rounds[:3], 1), old)
+    for out, plain in ((rounds, K.fused_removal_round_plain),
+                       (promo, K.fused_promotion_stats_plain)):
+        for g_, w_ in zip(out, plain(*args)):
+            assert g_.dtype == w_.dtype and torch.equal(g_, w_)
+    masks = _masks(n, src)
+    for stat in UNIT_STATS:
+        for name, aux in (masks.items() if stat in K._MASK_STATS
+                          else [(None, None)]):
+            key = f"coo_stat[{stat}]"
+            count = K.LAUNCHES[key]
+            got = K.coo_stat(*args, stat, aux)
+            assert K.LAUNCHES[key] == count + 1 + (stat in K._MASK_STATS)
+            assert torch.equal(got, K.coo_stat_plain(*args, stat, aux)), (
+                stat, name)
 
 
 @pytest.mark.parametrize("kind", ["hub", "runs", "grid_stride", "dirty",
                                   "shuffled"])
 def test_wsum_and_fused_removal_kernels_match_plain(kind):
+    """The run-folding edge passes on windows of runs; the test keeps its
+    name from when wsum and the removal round were the only ones."""
     _check_run_folding(*_run_window(kind, seed=len(kind)))
 
 
@@ -402,20 +432,24 @@ def test_wsum_and_fused_removal_kernels_unaligned_views(offset, which):
 
 
 def test_wsum_and_fused_removal_kernels_run_the_designed_instructions():
-    """wsum_kernel and removal_round_kernel load slot columns 128 bits at
-    a time (LDG.E.128) and join runs across the warp by shuffles (SHFL);
-    the one-slot-a-thread stat_kernel<MCD_HI_DOUT> has no 128-bit load,
-    so a scalar path cannot pass for the redesigned ones."""
+    """Every edge pass (wsum_kernel, removal_round_kernel and the four
+    unit_stat_kernel instances: hi_dout, mcd, din, same_in) loads slot
+    columns 128 bits at a time (LDG.E.128) and joins runs across the warp
+    by shuffles (SHFL), so a scalar one-slot-a-thread path cannot pass
+    for them."""
     _card()
     sass = _sass_by_function(build_lib.build())
     wide = re.compile(r"LDG\.E\S*\.128")
-    for kernel in ("wsum_kernel", "removal_round_kernel"):
+    for kernel, count in (("wsum_kernel", 1), ("removal_round_kernel", 1),
+                          ("unit_stat_kernel", 4)):
         fns = {n: t for n, t in sass.items() if kernel in n}
-        assert len(fns) == 1, (kernel, sorted(sass))
-        text = next(iter(fns.values()))
-        assert wide.search(text) and "SHFL" in text, kernel
-    old = [t for n, t in sass.items() if "stat_kernelILi0E" in n]
-    assert len(old) == 1 and not wide.search(old[0])
+        assert len(fns) == count, (kernel, sorted(sass))
+        for name, text in fns.items():
+            assert wide.search(text) and "SHFL" in text, name
+    assert not [n for n in sass if re.search(r"\d+stat_kernel", n)]
+    # the masked stats' bit packing: one ballot a warp
+    packs = [t for n, t in sass.items() if "pack_mask_kernel" in n]
+    assert len(packs) == 1 and "VOTE" in packs[0]
 
 
 # -- ELL, FM and attention kernels ---------------------------------------

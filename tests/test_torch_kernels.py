@@ -267,7 +267,9 @@ def _run_inputs(n, e, seed, shuffle):
 
 
 @pytest.mark.parametrize("shuffle", [False, True])
-@pytest.mark.parametrize("fn", ["wsum", "fused_removal_round"])
+@pytest.mark.parametrize("fn", ["wsum", "fused_removal_round",
+                                "fused_promotion_stats",
+                                *(f"coo_stat[{s}]" for s in UNIT_STATS)])
 def test_run_windows_match_pallas(fn, shuffle):
     n = 60
     src, dst, valid, core, label, w, thresh = _run_inputs(n, 700, 11,
@@ -277,9 +279,77 @@ def test_run_windows_match_pallas(fn, shuffle):
         _eq(got, want)
         return
     arrays = (src, dst, valid, core, label)
-    for g_, w_ in zip(_port(K.fused_removal_round, arrays, n),
-                      _ref(ref.fused_removal_round, arrays, n)):
+    if fn.startswith("coo_stat"):
+        stat = fn[len("coo_stat["):-1]
+        aux = np.random.default_rng(12).random(n) < 0.5
+        _eq(K.coo_stat(*(torch.from_numpy(x) for x in arrays), n, stat,
+                       torch.from_numpy(aux)),
+            ref.coo_stat(*(jnp.asarray(x) for x in arrays), n, stat=stat,
+                         aux=jnp.asarray(aux), interpret=True))
+        return
+    for g_, w_ in zip(_port(getattr(K, fn), arrays, n),
+                      _ref(getattr(ref, fn), arrays, n)):
         _eq(g_, w_)
+
+
+def _run_mask(kind, n, src):
+    """The masks ``din`` and ``same_in`` are tested under: none set, the
+    vertex with the longest run of slots, about 1% and 50% of the
+    vertices at random, all set."""
+    rng = np.random.default_rng(13)
+    if kind == "hub":
+        keys, counts = np.unique(src[(src >= 0) & (src < n)],
+                                 return_counts=True)
+        mask = np.zeros(n, dtype=bool)
+        mask[keys[counts.argmax()]] = True
+        return mask
+    return {"empty": np.zeros(n, dtype=bool),
+            "1%": rng.random(n) < 0.01,
+            "50%": rng.random(n) < 0.5,
+            "all": np.ones(n, dtype=bool)}[kind]
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("mask", ["empty", "hub", "1%", "50%", "all"])
+@pytest.mark.parametrize("stat", ["din", "same_in"])
+def test_masked_stats_match_pallas(stat, mask, shuffle):
+    """The mask-gated stats on run windows under masks from empty to
+    full (the card's kernel skips the slots that touch no masked
+    vertex)."""
+    n = 200
+    src, dst, valid, core, label, _, _ = _run_inputs(n, 1500, 17, shuffle)
+    aux = _run_mask(mask, n, src)
+    if mask == "1%":
+        assert 0 < aux.sum() < n // 20
+    arrays = (src, dst, valid, core, label)
+    want = ref.coo_stat(*(jnp.asarray(x) for x in arrays), n, stat=stat,
+                        aux=jnp.asarray(aux), interpret=True)
+    _eq(K.coo_stat(*(torch.from_numpy(x) for x in arrays), n, stat,
+                   torch.from_numpy(aux)), want)
+    if mask == "empty":
+        assert not np.asarray(want).any()
+
+
+def test_record_masks_keeps_copies_of_the_masked_calls():
+    """``record_masks`` keeps a copy of the mask of every din / same_in
+    call inside the block (None for a call without one), and nothing of
+    the other stats or of calls outside it."""
+    src, dst, valid, core, label, aux = (torch.from_numpy(x) for x in
+                                         _window(50, 128, seed=4))
+    args = (src, dst, valid, core, label, 50)
+    K.coo_stat(*args, "din", aux)
+    with K.record_masks() as rec:
+        K.coo_stat(*args, "din", aux)
+        K.coo_stat(*args, "mcd")
+        K.coo_stat(*args, "same_in")
+        K.coo_stat(*args, "same_in", aux.to(torch.int32))
+        aux.logical_not_()  # the record is a copy
+    K.coo_stat(*args, "same_in", aux)
+    assert [s for s, _ in rec] == ["din", "same_in", "same_in"]
+    assert torch.equal(rec[0][1], ~aux) and rec[1][1] is None
+    assert rec[2][1].dtype == torch.int32
+    assert torch.equal(rec[2][1].bool(), ~aux)
+    assert K._recorded is None
 
 
 def test_plain_versions_need_no_build():
