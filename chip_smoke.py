@@ -51,7 +51,10 @@ Phases:
      (sum and max, float32 and bfloat16) on the ELL matrix of
      ``erdos_renyi(2**21, 16_000_000)`` with its core numbers and
      ``[n, 100]`` features, with ``embedding_bag`` timed beside
-     ``ell_aggregate``; ``fm_interaction`` on DeepFM's
+     ``ell_aggregate`` and each ``ell_aggregate`` row's
+     ``gather_bound_ms`` beside its byte bound (the 32-byte sectors its
+     live gathers touch, plus ``nbrs`` and the output, over 3.35 TB/s);
+     ``fm_interaction`` on DeepFM's
      ``[262144, 39, 10]`` serving embeddings; ``flash_attention`` at
      qwen2-7b's heads (28 query, 4 kv, D = 128) on a 1 x 4,096 cut of
      ``prefill_32k``, causal bfloat16 (the wgmma + TMA kernel) and full
@@ -61,7 +64,9 @@ Phases:
      call held once to the plain version too);
   7. the slice's path, launch counts from 0: (a) DeepFM ``full()``
      serving with ``use_pallas_fm=True`` at ``serve_p99``, ``serve_bulk``
-     and ``retrieval_cand``, logits against the plain branch; (b) the
+     and ``retrieval_cand``, logits against the plain branch, and the FM
+     kernel on ``serve_p99``'s ``[512, 39, 10]`` embeddings as a kernels
+     row of its own (``fm_interaction[f32] serve_p99``); (b) the
      kernel API on the ER graph's core-maintenance state, ``ell_stat``'s
      ``count_ge`` / ``count_gt`` equal bit for bit to ``coo_stat``'s
      ``mcd`` / ``hi`` over the maintainer's slot window, ``mcd >= core``,
@@ -755,7 +760,7 @@ def close(got, want, tol) -> tuple:
 
 def float_row(name, kname, got, want, tol, run, run_plain, nbytes, ops,
               peak, iters, device, shape, library=None,
-              library_call=None) -> dict:
+              library_call=None, phase="phase 6") -> dict:
     """Hold a kernel's output to its plain version's within ``tol``, time
     both with CUDA events, and return its ``kernels`` JSON row; ``name``
     is also its launch counter's key. ``library`` is one PyTorch call
@@ -763,21 +768,21 @@ def float_row(name, kname, got, want, tol, run, run_plain, nbytes, ops,
     once to the plain version within ``tol`` and timed as the
     yardstick."""
     check(got.dtype == want.dtype and got.shape == want.shape,
-          f"phase 6 {name}: dtype/shape")
+          f"{phase} {name}: dtype/shape")
     ok, err = close(got, want, tol)
-    check(ok, f"phase 6 {name}: max abs err {err} over rtol/atol {tol}")
+    check(ok, f"{phase} {name}: max abs err {err} over rtol/atol {tol}")
     if library is not None:
         ok, lib_err = close(library(), want, tol)
-        log(f"phase 6 {name}: {library_call} max abs err to the plain "
+        log(f"{phase} {name}: {library_call} max abs err to the plain "
             f"version {lib_err}")
-        check(ok, f"phase 6 {name}: {library_call} differs from the plain "
+        check(ok, f"{phase} {name}: {library_call} differs from the plain "
               f"version by {lib_err} over rtol/atol {tol}")
     ms = time_ms(run, iters, device)
     plain_ms = time_ms(run_plain, max(1, iters // 4), device)
     lib_ms = time_ms(library, iters, device) if library else None
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
-    log(f"phase 6 {name}: {shape} max_abs_err={err} (rtol/atol {tol}) "
+    log(f"{phase} {name}: {shape} max_abs_err={err} (rtol/atol {tol}) "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
         f"bytes={nbytes} ops={ops} bound_ms={max(t_bytes, t_ops):.4f}")
     return dict(
@@ -789,6 +794,22 @@ def float_row(name, kname, got, want, tol, run, run_plain, nbytes, ops,
         library_ms=lib_ms,
         library_note=library_call if library else NO_LIBRARY[kname],
     )
+
+
+def gather_bytes(nbrs, feats) -> int:
+    """What ``ell_aggregate`` must move at the least, gathers counted as
+    the card moves them: every live neighbour that reads a row (its id
+    wraps into [0, n)) in the whole 32-byte sectors that row spans from
+    ``feats``' base, plus ``nbrs`` and the output once."""
+    import torch
+    n = nbrs.shape[0]
+    ids = nbrs.long()
+    r = torch.where(ids < 0, ids + n + 1, ids)
+    r = r[(ids < n) & (r >= 0) & (r < n)]
+    row = feats.shape[1] * feats.element_size()
+    start = feats.data_ptr() % 32 + r * row
+    sectors = int(((start + row - 1) // 32 - start // 32 + 1).sum())
+    return 32 * sectors + 4 * nbrs.numel() + row * n
 
 
 def phase_ell_kernels(device, nbrs, core, feats, iters: int) -> list:
@@ -843,6 +864,14 @@ def phase_ell_kernels(device, nbrs, core, feats, iters: int) -> list:
                 f"{tag}", library=library,
                 library_call="embedding_bag over feats with a zero row "
                              "appended, padding_idx=n"))
+            row = rows[-1]
+            row["gather_bytes"] = gather_bytes(nbrs, fe)
+            row["gather_bound_ms"] = (row["gather_bytes"] / HBM_BYTES_PER_S
+                                      * 1e3)
+            log(f"phase 6 {row['name']}: gather_bytes={row['gather_bytes']} "
+                f"gather_bound_ms={row['gather_bound_ms']:.4f} "
+                f"share_of_gather_bound="
+                f"{row['gather_bound_ms'] / row['ms']:.3f}")
         del fe, fe_ext
     return rows
 
@@ -962,12 +991,14 @@ def phase_attention_kernel(device, iters: int):
     return rows, keep
 
 
-def phase_deepfm(device) -> None:
+def phase_deepfm(device) -> list:
     """DeepFM ``full()`` serving on the card with ``use_pallas_fm=True``
     at the recsys serve and retrieval cells, ids made as the reference's
     ``launch/steps.py::_recsys_cell`` makes them; logits held to the
     plain branch (rtol/atol 1e-4, TF32 off), retrieval scores to a
-    float64 recomputation."""
+    float64 recomputation. Returns the kernels row of the FM kernel on
+    ``serve_p99``'s embeddings (its launches are the
+    ``fm_interaction[f32]`` counter's)."""
     import dataclasses
 
     import torch
@@ -985,6 +1016,7 @@ def phase_deepfm(device) -> None:
     log(f"phase 7a DeepFM full(): vocab_total={cfg.vocab_total} "
         f"embed_dim={cfg.embed_dim} mlp={cfg.mlp_dims} "
         f"n_params={cfg.n_params} init {time.perf_counter() - t0:.1f} s")
+    rows = []
     for cell in RECSYS_SHAPES:
         if cell.kind not in ("serve", "retrieval"):
             continue  # training DeepFM is ROADMAP Queue 1 item 13
@@ -1017,6 +1049,17 @@ def phase_deepfm(device) -> None:
                 path_launches = dict(FM.LAUNCHES)
                 fm_ms = time_ms(lambda: FM.fm_interaction(emb), ITERS,
                                 device)
+                if cell.name == "serve_p99":
+                    rows.append(float_row(
+                        f"fm_interaction[f32] {cell.name}", "fm_interaction",
+                        FM.fm_interaction(emb), FM.fm_interaction_plain(emb),
+                        (1e-4, 1e-4), lambda: FM.fm_interaction(emb),
+                        lambda: FM.fm_interaction_plain(emb),
+                        emb.element_size() * (emb.numel() + emb.shape[0]),
+                        3 * emb.numel(), FP32_PEAK, ITERS, device,
+                        f"emb={list(emb.shape)} {emb.dtype}",
+                        phase="phase 7a"))
+                    rows[-1]["counter"] = "fm_interaction[f32]"
                 FM.LAUNCHES.update(path_launches)
                 log(f"phase 7a {cell.name}: batch={b} logits max abs err "
                     f"to the plain branch {err} wall_ms={ms:.4f} "
@@ -1039,6 +1082,7 @@ def phase_deepfm(device) -> None:
                 log(f"phase 7a {cell.name}: 1 query x {nc} candidates "
                     f"max abs err to float64 {err} wall_ms={ms:.4f}")
     del model
+    return rows
 
 
 def phase_api_on_core_state(device, me, nbrs, feats) -> None:
@@ -1212,7 +1256,7 @@ def main() -> int:
     for mod in (SE, FM, FA):
         mod.reset_launches()
     t0 = time.perf_counter()
-    phase_deepfm(device)
+    new_rows += phase_deepfm(device)
     phase_api_on_core_state(device, me, nbrs, feats)
     for name, (q, k, v, causal, want) in attn_cases.items():
         with torch.no_grad():
@@ -1228,7 +1272,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     for r in new_rows:
         # every row is one kernel instance, and its name is its counter
-        r["launches"] = new_launches[r["name"]]
+        # (the serve_p99 FM row: the instance's counter)
+        r["launches"] = new_launches[r.pop("counter", r["name"])]
         check(r["launches"] > 0,
               f"phase 7: kernel {r['name']} was never launched")
         r["status"] = "on the slice's path (phase 7)"

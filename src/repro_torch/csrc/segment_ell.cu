@@ -21,10 +21,28 @@
 //   run for int32 too, it took 0.72 ms against the tree's 0.35 ms on the
 //   ELL matrix of erdos_renyi(2**21, 16M) (chip_smoke.py, NVIDIA H100
 //   80GB HBM3, 700.00 W), so integer sums keep the tree.
-//   ell_aggregate: the lanes lie across F instead (kPerLane features each,
-//   so a warp covers 32 * kPerLane columns per pass), every lane reads the
-//   same id (one broadcast load), and the warp gathers a contiguous
-//   feature row, so the [n, F] reads are coalesced.
+//   ell_aggregate: the lanes lie across F instead, and the row's work is
+//   its live neighbours' feature-row gathers (a random 4F- or 2F-byte read
+//   each), so what bounds it is how many of them are in flight and how
+//   few instructions each costs. The warp reads its row's ids once,
+//   coalesced, 64 columns at a time (two ids a lane; the next row's first
+//   64 are loaded before this row's gathers); each lane turns its two ids
+//   into feature-row offsets, and the warp compacts the live ones, in
+//   column order, into a 64-entry list in shared memory (ballots and
+//   popcounts give each its slot): pad entries cost nothing further. The
+//   warp then reads the list by broadcast loads, kUnroll entries at a
+//   time, issuing all kUnroll gathers of a group before folding any, so a
+//   warp has kUnroll rows in flight instead of one. Each lane loads 4
+//   features with one vector load (float4 for float32, 8 bytes for
+//   bfloat16) where F % 4 == 0 and the feats and out bases allow it, else
+//   4 scalar loads 32 apart (the C entry picks the instance). Every output
+//   element still folds its neighbours in column order, so a float32 sum
+//   is bit for bit the plain version's. Measured on the ELL matrix of
+//   erdos_renyi(2**21, 16M) with [n, 100] features (NVIDIA H100 80GB
+//   HBM3, 700.00 W, scripts/time_kernel_api.py): broadcasting the offsets
+//   by shuffles instead of the shared list took 3.55 ms against 3.07 for
+//   bfloat16 max (the walk's instructions, and spills in the float32 max
+//   instance), and 4 gathers in flight against 8 were 2-3% slower.
 //
 // Semantics kept from the reference (segment_ell.py and kernels/ref.py):
 //   * an id is a neighbour when id < n; a negative id is a neighbour too
@@ -44,8 +62,10 @@
 // Bound. ell_stat: the nbrs matrix (4 B an entry), vals and self_vals once
 // and the output once; the vals gathers are random 4 B reads that the 50 MB
 // L2 mostly serves (vals of a 2M-vertex graph is 8 MB). ell_aggregate: the
-// nbrs matrix, feats and the output once; its real traffic is one
-// F-wide feature row gathered per neighbour, which is what limits it.
+// nbrs matrix, feats and the output once is its byte bound, but its real
+// traffic is one F-wide feature row gathered per live neighbour, in whole
+// 32-byte sectors (13 for a 400-byte float32 row, 7 for a 200-byte bf16
+// one), which is what limits it.
 //
 // C interface for ctypes: every function returns cudaGetLastError() of its
 // launch; the caller raises when it is not 0.
@@ -64,6 +84,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr long long kMaxBlocks = 132LL * 32;
 constexpr int kPerLane = 4;  // ell_aggregate: features a lane holds
+constexpr int kUnroll = 8;   // ell_aggregate: gathers in flight a warp
 
 // the accumulator of a sum: wrapping unsigned for the integer types
 template <typename T> struct Acc { using type = T; };
@@ -73,10 +94,14 @@ template <> struct Acc<long long> { using type = unsigned long long; };
 template <typename T> __device__ __forceinline__ bool is_nan(T) { return false; }
 template <> __device__ __forceinline__ bool is_nan<float>(float x) { return x != x; }
 
-// jnp.max: NaN wins, then the larger value
+// jnp.max: NaN wins, then the larger value, and a tie keeps a. Two
+// compares and a select: ell_aggregate folds every gathered feature with
+// it, and a third compare (keeping a's NaN when both are NaN) made the
+// float32 and bfloat16 max instances 6% and 28% slower (NVIDIA H100 80GB
+// HBM3, 700.00 W, scripts/time_kernel_api.py)
 template <typename T>
 __device__ __forceinline__ T max_nan(T a, T b) {
-  return (is_nan(a) || a > b) ? a : (is_nan(b) || b > a) ? b : a;
+  return (b > a || is_nan(b)) ? b : a;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -172,45 +197,146 @@ ell_stat_kernel(const int* __restrict__ nbrs, const T* __restrict__ vals,
   }
 }
 
-template <typename T, int OP>
+// ell_aggregate: a lane's 4 features of one feature row, raw (VEC: one
+// 16-byte float4 or one 8-byte load of 4 bf16 at element f; else 4 scalar
+// loads at f, f + 32, f + 64, f + 96), zero where out of range
+template <typename T, bool VEC> struct Quad;
+template <> struct Quad<float, true> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p, long long f, long long F) {
+    v = f < F ? __ldg(reinterpret_cast<const float4*>(p + f)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ float get(int k) const {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+};
+template <> struct Quad<__nv_bfloat16, true> {
+  uint2 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, long long f, long long F) {
+    v = f < F ? __ldg(reinterpret_cast<const uint2*>(p + f)) : make_uint2(0u, 0u);
+  }
+  __device__ __forceinline__ float get(int k) const {
+    const unsigned w = k < 2 ? v.x : v.y;  // bf16 k at bits 16 * (k % 2)
+    return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+template <typename T> struct Quad<T, false> {
+  float x[kPerLane];
+  __device__ __forceinline__ void load(const T* p, long long f, long long F) {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k)
+      x[k] = f + 32 * k < F ? to_f(p[f + 32 * k]) : 0.f;
+  }
+  __device__ __forceinline__ float get(int k) const { return x[k]; }
+};
+
+// the lane's ids of columns j0 + lane and j0 + 32 + lane (0 past D)
+__device__ __forceinline__ void load_ids(const int* row, long long j0,
+                                         long long D, int lane, int& a,
+                                         int& b) {
+  a = j0 + lane < D ? row[j0 + lane] : 0;
+  b = j0 + 32 + lane < D ? row[j0 + 32 + lane] : 0;
+}
+
+// where a live id's feature row starts in feats (-1: it reads the zero
+// fill)
+__device__ __forceinline__ long long row_offset(int id, long long n,
+                                                long long F) {
+  const long long r = ext_row(id, n);
+  return r >= 0 ? r * F : -1;
+}
+
+template <typename T, int OP, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 ell_aggregate_kernel(const int* __restrict__ nbrs, const T* __restrict__ feats,
                      T* __restrict__ out, long long n, long long D,
                      long long F) {
+  const unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const long long warp0 = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const long long stride = (long long)gridDim.x * kWarps;
   const float neg = to_f(from_f<T>(-1e30f));  // the sentinel in T
+  // the warp's live columns' feature-row offsets, in column order
+  __shared__ long long offs[kWarps][64];
+  long long* buf = offs[threadIdx.x >> 5];
+  // this lane's first feature in a pass of 32 * kPerLane
+  const int lane_f = VEC ? kPerLane * lane : lane;
+  int next_a = 0, next_b = 0;
+  if (warp0 < n) load_ids(nbrs + warp0 * D, 0, D, lane, next_a, next_b);
   for (long long v = warp0; v < n; v += stride) {
     const int* row = nbrs + v * D;
+    const int first_a = next_a, first_b = next_b;
+    if (v + stride < n)  // the next row's ids, in flight with this row
+      load_ids(row + stride * D, 0, D, lane, next_a, next_b);
     for (long long f0 = 0; f0 < F; f0 += 32 * kPerLane) {
+      const long long f = f0 + lane_f;
       float acc[kPerLane];
-      bool pad = false, any = false;
-      for (int k = 0; k < kPerLane; ++k) acc[k] = OP == SUM ? 0.f : neg;
-      for (long long j = 0; j < D; ++j) {
-        const int id = row[j];  // one broadcast load for the warp
-        if ((long long)id >= n) {
-          pad = true;
-          continue;
-        }
-        const long long r = ext_row(id, n);
-        const T* src = feats + r * F;
 #pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const long long f = f0 + lane + 32 * k;
-          const float x = (f < F && r >= 0) ? to_f(src[f]) : 0.f;
-          if (OP == SUM) acc[k] += x;
-          else acc[k] = any ? max_nan(acc[k], x) : x;
+      for (int k = 0; k < kPerLane; ++k)
+        acc[k] = OP == SUM ? 0.f : __int_as_float(0xff800000);  // -inf
+      bool any = false, pad = false;  // warp-uniform
+      for (long long j0 = 0; j0 < D; j0 += 64) {
+        int ida = first_a, idb = first_b;
+        if (j0 > 0) load_ids(row, j0, D, lane, ida, idb);
+        const bool in_a = j0 + lane < D, in_b = j0 + 32 + lane < D;
+        const bool live_a = in_a && (long long)ida < n;
+        const bool live_b = in_b && (long long)idb < n;
+        // each lane resolves its own two columns once; the gathers below
+        // only read the offsets back
+        const long long off_a = live_a ? row_offset(ida, n, F) : -1;
+        const long long off_b = live_b ? row_offset(idb, n, F) : -1;
+        const unsigned lo = __ballot_sync(kAll, live_a);
+        const unsigned hi = __ballot_sync(kAll, live_b);
+        pad = pad || __any_sync(kAll, (in_a && !live_a) || (in_b && !live_b));
+        any = any || (lo | hi) != 0;
+        const unsigned lt = (1u << lane) - 1;  // the lanes below this one
+        if (live_a) buf[__popc(lo & lt)] = off_a;
+        if (live_b) buf[__popc(lo) + __popc(hi & lt)] = off_b;
+        __syncwarp();
+        const int total = __popc(lo) + __popc(hi);
+        for (int k0 = 0; k0 < total; k0 += kUnroll) {
+          Quad<T, VEC> x[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const long long o = k0 + u < total ? buf[k0 + u] : -1;
+            x[u].load(feats + (o >= 0 ? o : 0), f, o >= 0 ? F : 0);
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (k0 + u >= total) break;
+#pragma unroll
+            for (int k = 0; k < kPerLane; ++k) {
+              if (OP == SUM) acc[k] += x[u].get(k);
+              else acc[k] = max_nan(acc[k], x[u].get(k));
+            }
+          }
         }
-        any = true;
+        __syncwarp();  // the next chunk rewrites the list
       }
+      float res[kPerLane];
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
-        const long long f = f0 + lane + 32 * k;
-        if (f >= F) continue;
-        float res = acc[k];
-        if (OP == MAX) res = !any ? 0.f : pad ? max_nan(res, neg) : res;
-        out[v * F + f] = from_f<T>(res);
+        res[k] = acc[k];
+        if (OP == MAX) res[k] = !any ? 0.f : pad ? max_nan(acc[k], neg) : acc[k];
+      }
+      T* o = out + v * F;
+      if constexpr (VEC) {
+        if (f < F) {
+          if constexpr (sizeof(T) == 4) {
+            *reinterpret_cast<float4*>(o + f) = make_float4(res[0], res[1], res[2], res[3]);
+          } else {
+            unsigned h[kPerLane];
+#pragma unroll
+            for (int k = 0; k < kPerLane; ++k)
+              h[k] = __bfloat16_as_ushort(from_f<__nv_bfloat16>(res[k]));
+            *reinterpret_cast<uint2*>(o + f) =
+                make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k)
+          if (f + 32 * k < F) o[f + 32 * k] = from_f<T>(res[k]);
       }
     }
   }
@@ -240,6 +366,15 @@ int launch_stat(const void* nbrs, const void* vals, const void* self_vals,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int OP>
+void launch_agg_op(bool vec, unsigned g, const int* nb, const T* fe, T* o,
+                   long long n, long long D, long long F, cudaStream_t st) {
+  if (vec)
+    ell_aggregate_kernel<T, OP, true><<<g, kThreads, 0, st>>>(nb, fe, o, n, D, F);
+  else
+    ell_aggregate_kernel<T, OP, false><<<g, kThreads, 0, st>>>(nb, fe, o, n, D, F);
+}
+
 template <typename T>
 int launch_agg(const void* nbrs, const void* feats, void* out, long long n,
                long long D, long long F, int op, cudaStream_t st) {
@@ -247,9 +382,14 @@ int launch_agg(const void* nbrs, const void* feats, void* out, long long n,
   auto fe = (const T*)feats;
   auto o = (T*)out;
   const unsigned g = blocks_for(n);
+  // one vector load of 4 features a lane: every row of feats and out must
+  // start on a multiple of 4 elements (16 B float32, 8 B bfloat16)
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec = F % 4 == 0 && (uintptr_t)feats % align == 0 &&
+                   (uintptr_t)out % align == 0;
   switch (op) {
-    case SUM: ell_aggregate_kernel<T, SUM><<<g, kThreads, 0, st>>>(nb, fe, o, n, D, F); break;
-    case MAX: ell_aggregate_kernel<T, MAX><<<g, kThreads, 0, st>>>(nb, fe, o, n, D, F); break;
+    case SUM: launch_agg_op<T, SUM>(vec, g, nb, fe, o, n, D, F, st); break;
+    case MAX: launch_agg_op<T, MAX>(vec, g, nb, fe, o, n, D, F, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

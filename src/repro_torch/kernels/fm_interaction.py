@@ -6,10 +6,12 @@ PyTorch version and launch counter.
 ``fm_interaction`` replaces the reference's Pallas ``fm_interaction``
 (``kernels/fm_interaction.py``): ``emb [B, F, D]`` to ``[B]`` in
 ``emb``'s dtype, accumulated in float32. On a CUDA tensor it launches
-``fm_kernel`` of ``csrc/fm_interaction.cu`` (a block stages whole rows in
-shared memory and reduces them there; one pass over ``emb``, so it is
-bound by the bytes of ``emb``) or raises; it never falls back, and it is
-forward-only. On a CPU tensor it runs ``fm_interaction_plain``.
+``fm_kernel`` of ``csrc/fm_interaction.cu`` (a persistent grid whose CTAs
+bring spans of whole rows into a ring of shared-memory stages with bulk
+copies and reduce one span while the next ones load; one pass over
+``emb``, so it is bound by the bytes of ``emb``) or raises; it never falls
+back, and it is forward-only. On a CPU tensor it runs
+``fm_interaction_plain``.
 """
 from __future__ import annotations
 
@@ -20,8 +22,6 @@ import torch
 from . import build as B
 
 _DTYPES = {torch.float32: 2, torch.bfloat16: 3}
-# the widest row the kernel takes (its per-row terms fit 48 KB)
-MAX_EMBED_DIM = 12288
 
 _TAGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -58,9 +58,6 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     if emb.dtype not in _DTYPES:
         raise TypeError(f"fm_interaction: the CUDA kernel takes float32 or "
                         f"bfloat16, got {emb.dtype}")
-    if d > MAX_EMBED_DIM:
-        raise ValueError(f"fm_interaction: the CUDA kernel takes D <= "
-                         f"{MAX_EMBED_DIM}, got {d}")
     B.forward_only("fm_interaction", emb)
     emb = emb.contiguous()
     out = torch.empty(b, dtype=emb.dtype, device=emb.device)

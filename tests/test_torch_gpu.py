@@ -511,8 +511,9 @@ def test_ell_stat_float_kernel_is_bit_exact_on_real_values(op, n, d):
 @pytest.mark.parametrize("n,d,f", [(200, 12, 16), (3000, 40, 100),
                                    (64, 5, 300)])
 def test_ell_aggregate_kernel_matches_plain(dtype, op, n, d, f):
-    """float32 sum: rtol/atol 1e-5 (sum order); max: exact; bfloat16
-    sum: rtol 2e-2 / atol 1e-2, as the reference's kernel tests."""
+    """Bit for bit (``torch.equal``), both ops and dtypes: the kernel folds
+    every output element in column order and rounds a sum once, as the
+    plain version does."""
     nbrs = _ell(n, d, seed=n + f, neg=True)
     gen = torch.Generator(device=_card()).manual_seed(f)
     feats = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
@@ -523,13 +524,88 @@ def test_ell_aggregate_kernel_matches_plain(dtype, op, n, d, f):
     assert SE.LAUNCHES[key] == before + 1
     want = SE.ell_aggregate_plain(nbrs, feats, op)
     assert got.dtype == want.dtype == dtype and got.shape == (n, f)
-    if op == "max":
-        assert torch.equal(got, want)
-    elif dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    else:
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=1e-2)
+    assert torch.equal(got, want)
+
+
+def _feats(n, f, dtype, seed, offset=0):
+    """``[n, f]`` random features on the card; ``offset`` > 0 makes them a
+    view that many elements into a flat buffer, so its ``data_ptr`` is
+    not 16-byte aligned."""
+    gen = torch.Generator(device=_card()).manual_seed(seed)
+    x = torch.randn((n, f), generator=gen, device="cuda").to(dtype)
+    if offset:
+        buf = torch.zeros(n * f + offset, dtype=dtype, device="cuda")
+        buf[offset:] = x.flatten()
+        x = buf[offset:].view(n, f)
+    return x
+
+
+def _check_agg(nbrs, feats, op):
+    """The kernel against its plain version, bit for bit; NaN where the
+    plain version has NaN."""
+    key = f"ell_aggregate[{op},{TAG[feats.dtype]}]"
+    before = SE.LAUNCHES[key]
+    got = ops.ell_aggregate_op(nbrs, feats, op)
+    torch.cuda.synchronize()
+    assert SE.LAUNCHES[key] == before + 1
+    want = SE.ell_aggregate_plain(nbrs, feats, op)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("d", [1, 31, 33, 70])
+@pytest.mark.parametrize("f", [1, 3, 4, 100, 129, 300])
+def test_ell_aggregate_kernel_folds_in_column_order(dtype, op, d, f):
+    """Every F the lanes cover in one or several passes (vector loads for
+    F % 4 == 0, scalar ones for odd F, bfloat16 included) and D across
+    the 64-column id chunks, on rows that mix live, negative and pad ids:
+    bit for bit."""
+    nbrs = _ell(300, d, seed=7 * f + d, neg=True)
+    _check_agg(nbrs, _feats(300, f, dtype, seed=f + d), op)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("f,offset", [(4, 1), (100, 1), (100, 2), (129, 3)])
+def test_ell_aggregate_kernel_unaligned_feats(dtype, op, f, offset):
+    """``feats`` as a view whose base is not 16-byte aligned takes the
+    scalar loads (bfloat16 at an even offset keeps its 8-byte loads)."""
+    feats = _feats(500, f, dtype, seed=f, offset=offset)
+    assert feats.data_ptr() % 16 != 0 and feats.is_contiguous()
+    _check_agg(_ell(500, 40, seed=offset, neg=True), feats, op)
+    # a row view of a wider table: rows 1.. of [n + 1, f]
+    rows = _feats(501, f, dtype, seed=f + 1)[1:]
+    _check_agg(_ell(500, 40, seed=offset + 3), rows, op)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("case", ["all_pad", "all_live", "negative",
+                                  "nan", "below_sentinel"])
+def test_ell_aggregate_kernel_edge_rows(dtype, op, case):
+    """All-pad rows (max gives 0), all-live rows (no sentinel), only
+    negative ids (they wrap once; -1 and those below -(n + 1) read 0), NaN
+    features (they propagate), and features below the -1e30 sentinel
+    (max gives the sentinel where a row holds a pad entry)."""
+    n, d, f = 400, 38, 100
+    rng = np.random.default_rng(len(case))
+    ids = rng.integers(0, n, size=(n, d))
+    if case == "all_pad":
+        ids[:] = n
+    elif case == "negative":
+        ids = rng.integers(-(n + 4), 0, size=(n, d))
+        ids[::5, d // 2:] = n
+    elif case != "all_live":
+        ids[rng.random((n, d)) < 0.6] = n
+    nbrs = torch.from_numpy(ids.astype(np.int32)).to(_card())
+    feats = _feats(n, f, dtype, seed=3)
+    if case == "nan":
+        feats[::9, ::7] = float("nan")
+    elif case == "below_sentinel":
+        feats = feats.float().mul(1e36).to(dtype)
+    _check_agg(nbrs, feats, op)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -551,6 +627,47 @@ def test_fm_interaction_kernel_matches_plain(dtype, b, f, d):
     assert got.dtype == dtype and got.shape == (b,)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _check_fm(emb):
+    key = f"fm_interaction[{TAG[emb.dtype]}]"
+    before = FM.LAUNCHES[key]
+    got = ops.fm_interaction_op(emb)
+    torch.cuda.synchronize()
+    assert FM.LAUNCHES[key] == before + 1
+    want = FM.fm_interaction_plain(emb)
+    assert got.dtype == emb.dtype and got.shape == (emb.shape[0],)
+    tol = 1e-4 if emb.dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["whole", "from_row_1"])
+@pytest.mark.parametrize("b", [1, 3, 31, 512, 20_000])
+def test_fm_interaction_kernel_batch_sizes(dtype, view, b):
+    """DeepFM's [B, 39, 10] rows (1,560 B float32, 780 B bfloat16, so a
+    span is an even or a multiple-of-4 count of rows): batches from one
+    row (a ragged span read from device memory) to many spans a CTA, and
+    ``emb[1:]``, whose base is 8-byte aligned (float32) and takes the
+    plain loads. Tolerance as in test_fm_interaction_kernel_matches_plain."""
+    gen = torch.Generator(device=_card()).manual_seed(b)
+    emb = torch.randn((b + 1, 39, 10), generator=gen, device="cuda").to(dtype)
+    emb = emb[:b] if view == "whole" else emb[1:]
+    assert (emb.data_ptr() % 16 == 0) == (view == "whole")
+    _check_fm(emb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,d", [(1, 3, 5), (31, 3, 5), (20_000, 3, 5),
+                                   (33, 7, 40), (2000, 7, 40), (700, 1, 1),
+                                   (300, 26, 33)])
+def test_fm_interaction_kernel_row_widths(dtype, b, f, d):
+    """Rows of 30 and 60 bytes ([*, 3, 5]: spans of a multiple of 8 or 4
+    rows), D > 32 (a group of 32 lanes a row, several columns a lane) and
+    1-element rows; rows too wide for a stage are
+    test_fm_interaction_kernel_matches_plain's [9, 200, 100]."""
+    gen = torch.Generator(device=_card()).manual_seed(b + f + d)
+    _check_fm(torch.randn((b, f, d), generator=gen, device="cuda").to(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -646,6 +763,31 @@ def test_attention_kernels_run_the_designed_instructions():
     for name, text in ffma.items():
         assert "HGMMA" not in text and "HMMA" not in text, name
         assert "FFMA" in text, name
+
+
+def test_ell_aggregate_and_fm_kernels_run_the_designed_instructions():
+    """Every ell_aggregate_kernel instance compacts its row's live ids
+    with ballots (VOTE) into a shared-memory list that its lanes read by
+    broadcast (LDS); the vector instances gather 4 features a lane in one
+    load (LDG.E.128 float32, LDG.E.64 bfloat16). The staged fm_kernel
+    instances fill their ring with bulk copies (UBLKCP) and every
+    instance adds a row's D terms with shuffles (SHFL), so a one-id-at-a-
+    time walk, a one-thread-a-row reduction or a plain-load design cannot
+    pass for them."""
+    _card()
+    sass = _sass_by_function(build_lib.build())
+    agg = {n: t for n, t in sass.items() if "ell_aggregate_kernel" in n}
+    assert len(agg) == 8, sorted(sass)  # dtype x op x vector or scalar
+    for name, text in agg.items():
+        assert "VOTE" in text and "LDS" in text, name
+        if "Lb1E" in name:  # VEC = true
+            width = "128" if "ell_aggregate_kernelIf" in name else "64"
+            assert re.search(rf"LDG\.E\S*\.{width}", text), name
+    fm = {n: t for n, t in sass.items() if "fm_kernel" in n}
+    assert len(fm) == 4, sorted(sass)  # dtype x staged or not
+    for name, text in fm.items():
+        assert "SHFL" in text, name
+        assert ("UBLKCP" in text) == ("Lb1E" in name), name
 
 
 def test_new_kernels_are_forward_only():
