@@ -47,11 +47,13 @@ Phases:
      column against a host mirror, and the labels canonical;
   6. the kernels of ``kernels/ops.py`` against their plain versions at
      the shapes phase 7 gives them, timed with CUDA events beside their
-     bounds: ``ell_stat`` (four ops, bit for bit) and ``ell_aggregate``
-     (sum and max, float32 and bfloat16) on the ELL matrix of
-     ``erdos_renyi(2**21, 16_000_000)`` with its core numbers and
+     bounds, on the ELL matrix of ``erdos_renyi(2**21, 16_000_000)``:
+     ``ell_stat``, bit for bit, on its core numbers (the four ops on
+     int32 cores, ``sum`` and ``max`` on float32 cores plus seeded
+     noise, ``count_ge`` and ``sum`` on int64 cores), and
+     ``ell_aggregate`` (sum and max, float32 and bfloat16) with
      ``[n, 100]`` features, with ``embedding_bag`` timed beside
-     ``ell_aggregate`` and each ``ell_aggregate`` row's
+     ``ell_aggregate`` and the float32 ``ell_stat`` rows, and each row's
      ``gather_bound_ms`` beside its byte bound (the 32-byte sectors its
      live gathers touch, plus ``nbrs`` and the output, over 3.35 TB/s);
      ``fm_interaction`` on DeepFM's
@@ -69,8 +71,10 @@ Phases:
      row of its own (``fm_interaction[f32] serve_p99``); (b) the
      kernel API on the ER graph's core-maintenance state, ``ell_stat``'s
      ``count_ge`` / ``count_gt`` equal bit for bit to ``coo_stat``'s
-     ``mcd`` / ``hi`` over the maintainer's slot window, ``mcd >= core``,
-     and ``ell_aggregate`` (float32 and bfloat16) checked as in phase 6;
+     ``mcd`` / ``hi`` over the maintainer's slot window (``count_ge`` on
+     int64 cores too), ``mcd >= core``, phase 6's other ``ell_stat``
+     instances and ``ell_aggregate`` (float32 and bfloat16) checked as in
+     phase 6;
      (c) ``flash_attention`` once in each of phase 6's cases. Each row of
      the kernels line is one kernel instance (an op, a dtype, a mask),
      and its launches are that instance's.
@@ -137,11 +141,15 @@ BF16_PEAK = 989e12        # bfloat16 tensor-core FLOP/s, dense
 NO_LIBRARY = {
     "ell_stat": "no single PyTorch call: count_ge / count_gt compare each "
                 "neighbour with the row's own value, and embedding_bag, "
-                "which gathers and reduces ELL rows, takes no int32 table "
-                "(these are int32 core numbers)",
+                "which gathers and reduces ELL rows, takes no integer "
+                "table (int32 and int64 core numbers here)",
     "fm_interaction": "no single PyTorch call computes the FM "
                       "second-order term",
 }
+# phase 6's ell_stat rows: (op, values), values from stat_values
+STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
+             ("max", "i32"), ("sum", "f32"), ("max", "f32"),
+             ("count_ge", "i64"), ("sum", "i64"))
 MAIN_PATH_KERNELS = ("coo_stat[din]", "coo_stat[same_in]",
                      "fused_removal_round", "fused_promotion_stats")
 WEIGHTED_PATH_KERNELS = ("coo_stat[wsum]",)
@@ -760,23 +768,25 @@ def close(got, want, tol) -> tuple:
 
 def float_row(name, kname, got, want, tol, run, run_plain, nbytes, ops,
               peak, iters, device, shape, library=None,
-              library_call=None, phase="phase 6") -> dict:
+              library_call=None, library_tol=None,
+              phase="phase 6") -> dict:
     """Hold a kernel's output to its plain version's within ``tol``, time
     both with CUDA events, and return its ``kernels`` JSON row; ``name``
     is also its launch counter's key. ``library`` is one PyTorch call
     (``library_call`` names it) computing the same function: it is held
-    once to the plain version within ``tol`` and timed as the
-    yardstick."""
+    once to the plain version within ``library_tol`` (``tol`` when None)
+    and timed as the yardstick."""
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{phase} {name}: dtype/shape")
     ok, err = close(got, want, tol)
     check(ok, f"{phase} {name}: max abs err {err} over rtol/atol {tol}")
     if library is not None:
-        ok, lib_err = close(library(), want, tol)
+        lib_tol = tol if library_tol is None else library_tol
+        ok, lib_err = close(library(), want, lib_tol)
         log(f"{phase} {name}: {library_call} max abs err to the plain "
             f"version {lib_err}")
         check(ok, f"{phase} {name}: {library_call} differs from the plain "
-              f"version by {lib_err} over rtol/atol {tol}")
+              f"version by {lib_err} over rtol/atol {lib_tol}")
     ms = time_ms(run, iters, device)
     plain_ms = time_ms(run_plain, max(1, iters // 4), device)
     lib_ms = time_ms(library, iters, device) if library else None
@@ -812,6 +822,26 @@ def gather_bytes(nbrs, feats) -> int:
     return 32 * sectors + 4 * nbrs.numel() + row * n
 
 
+def stat_values(core) -> dict:
+    """``ell_stat``'s values by tag: the int32 core numbers, float32 cores
+    plus seeded per-vertex noise (``0.1 * randn``, seed 1), int64 cores."""
+    import torch
+    gen = torch.Generator(device=core.device).manual_seed(1)
+    noise = 0.1 * torch.randn(core.shape, generator=gen, device=core.device)
+    return {"i32": core.int(), "f32": core.float() + noise,
+            "i64": core.long()}
+
+
+def add_gather_bound(row, nbrs, x, phase="phase 6") -> None:
+    """``gather_bytes`` of ``x``'s rows (``[n]`` values as rows of one)
+    and its time at 3.35 TB/s beside the row's measured time."""
+    row["gather_bytes"] = gather_bytes(nbrs, x.view(x.shape[0], -1))
+    row["gather_bound_ms"] = row["gather_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"{phase} {row['name']}: gather_bytes={row['gather_bytes']} "
+        f"gather_bound_ms={row['gather_bound_ms']:.4f} "
+        f"share_of_gather_bound={row['gather_bound_ms'] / row['ms']:.3f}")
+
+
 def phase_ell_kernels(device, nbrs, core, feats, iters: int) -> list:
     """``ell_stat`` and ``ell_aggregate`` against their plain versions on
     the ER graph's ELL matrix, core numbers and features."""
@@ -822,19 +852,34 @@ def phase_ell_kernels(device, nbrs, core, feats, iters: int) -> list:
     nnz = int((nbrs < n).sum())
     shape = f"nbrs=[{n}, {d}] neighbours={nnz}"
     rows = []
-    tag = {torch.int32: "i32", torch.int64: "i64"}[core.dtype]
-    for op in ("count_ge", "count_gt", "sum", "max"):
-        def run(op=op):
-            return SE.ell_stat(nbrs, core, core, op)
+    vals = stat_values(core)
+    for op, tag in STAT_ROWS:
+        v = vals[tag]
 
-        def plain(op=op):
-            return SE.ell_stat_plain(nbrs, core, core, op)
-        # nbrs, the core numbers (vals and self_vals, one tensor) and the
-        # output once; a compare and an add per neighbour
+        def run(op=op, v=v):
+            return SE.ell_stat(nbrs, v, v, op)
+
+        def plain(op=op, v=v):
+            return SE.ell_stat_plain(nbrs, v, v, op)
+        library = None
+        if tag == "f32":
+            # float values only: embedding_bag takes no integer table; a
+            # sum adds in its own order, and a max leaves the sentinel out
+            # (these values never fall below it)
+            def library(op=op, t=torch.cat([v, v.new_zeros(1)])[:, None]):
+                return torch.nn.functional.embedding_bag(
+                    nbrs, t, mode=op, padding_idx=n)[:, 0]
+        # nbrs, the values (vals and self_vals, one tensor) and the output
+        # once; a compare and an add per neighbour
         rows.append(float_row(
             f"ell_stat[{op},{tag}]", "ell_stat", run(), plain(), (0, 0),
-            run, plain, 4 * n * d + 2 * core.element_size() * n, 2 * nnz,
-            INT32_OPS_PER_S, iters, device, shape))
+            run, plain, 4 * n * d + 2 * v.element_size() * n, 2 * nnz,
+            FP32_PEAK if tag == "f32" else INT32_OPS_PER_S, iters, device,
+            f"{shape} {tag}", library=library,
+            library_call="embedding_bag over vals with a zero row "
+                         "appended, padding_idx=n",
+            library_tol=(1e-5, 1e-5) if op == "sum" else (0, 0)))
+        add_gather_bound(rows[-1], nbrs, v)
     for dtype, tag, tsum in ((torch.float32, "f32", (1e-5, 1e-5)),
                              (torch.bfloat16, "bf16", (2e-2, 1e-2))):
         fe = feats.to(dtype)
@@ -864,14 +909,7 @@ def phase_ell_kernels(device, nbrs, core, feats, iters: int) -> list:
                 f"{tag}", library=library,
                 library_call="embedding_bag over feats with a zero row "
                              "appended, padding_idx=n"))
-            row = rows[-1]
-            row["gather_bytes"] = gather_bytes(nbrs, fe)
-            row["gather_bound_ms"] = (row["gather_bytes"] / HBM_BYTES_PER_S
-                                      * 1e3)
-            log(f"phase 6 {row['name']}: gather_bytes={row['gather_bytes']} "
-                f"gather_bound_ms={row['gather_bound_ms']:.4f} "
-                f"share_of_gather_bound="
-                f"{row['gather_bound_ms'] / row['ms']:.3f}")
+            add_gather_bound(rows[-1], nbrs, fe)
         del fe, fe_ext
     return rows
 
@@ -1107,10 +1145,16 @@ def phase_api_on_core_state(device, me, nbrs, feats) -> None:
     check(torch.equal(ge, mcd), "phase 7b: ell_stat count_ge != coo_stat mcd")
     check(torch.equal(gt, hi), "phase 7b: ell_stat count_gt != coo_stat hi")
     check(bool((ge >= core).all()), "phase 7b: mcd < core somewhere")
-    for op in ("sum", "max"):
-        check(torch.equal(ops.ell_stat_op(nbrs, core, core, op),
-                          SE.ell_stat_plain(nbrs, core, core, op)),
-              f"phase 7b: ell_stat {op} != plain")
+    vals = stat_values(core)
+    ge64 = ops.ell_stat_op(nbrs, vals["i64"], vals["i64"], "count_ge")
+    check(torch.equal(ge64, mcd.long()),
+          "phase 7b: ell_stat count_ge (int64) != coo_stat mcd")
+    for op, tag in (("sum", "i32"), ("max", "i32"), ("sum", "i64"),
+                    ("sum", "f32"), ("max", "f32")):
+        v = vals[tag]
+        check(torch.equal(ops.ell_stat_op(nbrs, v, v, op),
+                          SE.ell_stat_plain(nbrs, v, v, op)),
+              f"phase 7b: ell_stat {op} {tag} != plain")
     for dtype, tsum in ((torch.float32, (1e-5, 1e-5)),
                         (torch.bfloat16, (2e-2, 1e-2))):
         fe = feats.to(dtype)
@@ -1122,9 +1166,9 @@ def phase_api_on_core_state(device, me, nbrs, feats) -> None:
                   f"the plain version by {err}")
         del fe
     log(f"phase 7b: over the slot window (E={w}, n={n}) ell_stat count_ge "
-        f"== coo_stat mcd and count_gt == coo_stat hi bit for bit, "
-        f"mcd >= core, sum/max and ell_aggregate sum/max (float32, "
-        f"bfloat16) == plain")
+        f"(int32, int64) == coo_stat mcd and count_gt == coo_stat hi bit "
+        f"for bit, mcd >= core, sum/max (int32, float32), sum (int64) and "
+        f"ell_aggregate sum/max (float32, bfloat16) == plain")
 
 
 def main() -> int:

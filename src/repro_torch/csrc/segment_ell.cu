@@ -8,19 +8,41 @@
 // Design. The TPU kernels walk a (n/BN, D/BD) grid in order and carry the
 // running reduction, and a neighbour count that pins max of an empty row
 // to 0, from one D block to the next in the output block. Hopper's blocks
-// run in no order, so here one warp owns a row and loops over all of D
-// itself: the reduction lives in registers, with no second grid dimension,
-// no atomics and no count array.
-//   ell_stat: the 32 lanes read the row's ids together (coalesced) and
-//   each gathers vals[id]. For the counts, max and integer sums each lane
-//   folds into its own partial and a warp shuffle tree combines the lanes
-//   (exact in any order: integer sums wrap). A float32 sum instead folds
-//   each 32-column chunk in column order (the gathered values broadcast
-//   lane by lane with shuffles), so it adds in the plain version's order
-//   and is bit for bit its result on any data. The serial fold is slow:
-//   run for int32 too, it took 0.72 ms against the tree's 0.35 ms on the
-//   ELL matrix of erdos_renyi(2**21, 16M) (chip_smoke.py, NVIDIA H100
-//   80GB HBM3, 700.00 W), so integer sums keep the tree.
+// run in no order, so here a row is reduced by one thread (ell_stat) or
+// one warp (ell_aggregate) that loops over all of D itself: the reduction
+// lives in registers, with no second grid dimension, no atomics and no
+// count array.
+//   ell_stat: a row's work is a few bytes of ids and one random 4- or
+//   8-byte gather a live neighbour, so what bounds it is keeping the nbrs
+//   stream and enough gathers in flight. A block owns a tile of kRows
+//   (256) consecutive rows. Whole rows, when the tile fits kTileBytes (all
+//   of D = 38 on the ER graph), are one contiguous span of nbrs: the block
+//   reads it 16 bytes a thread, kLoadVecs loads in flight before any
+//   store, evict-first (nbrs is read once), into shared memory, with a
+//   scalar head and tail where the span is not 16-byte aligned. Each
+//   thread then takes entries t, t + 256, ... of the tile, issues kGathers
+//   gathers of vals before it uses any, and writes each entry's
+//   contribution over its id: a count's 0 or 1 (the row's self value
+//   staged in shared memory), a sum's value, max's value or, for a pad
+//   entry, the sentinel, with the row marked as holding a neighbour. Then
+//   each thread folds its own row's slots in column order from shared
+//   memory: one loop for the four ops and three dtypes, with no shuffles,
+//   so a float32 sum adds in the plain version's order and is bit for bit
+//   its result. A wider row is cut into column chunks of the tile's width,
+//   read an id a thread, and the accumulator carries from chunk to chunk
+//   in registers. The outputs leave as one coalesced store of 256.
+//   Measured on the ELL matrix of erdos_renyi(2**21, 16M) with its core
+//   numbers (NVIDIA H100 80GB HBM3, 700.00 W, scripts/time_kernel_api.py):
+//   0.284-0.291 ms for each int32 and float32 instance (the warp a row of
+//   before: 0.354-0.466, and 0.736 for the float32 sum's shuffle walk).
+//   What bounds it is L2's rate for 32-byte sectors: each live gather
+//   moves one, so the gathers and the nbrs stream take 1.34 GB from L2,
+//   at about 4.7 TB/s, the rate at which torch.index_select gathers the
+//   same live ids (0.2691-0.2718 ms; 0.1231-0.1238 with the ids sorted).
+//   So neither more gathers in flight (16 a thread: up to 0.35 ms), nor
+//   smaller tiles (128 or 64 rows: 0.29-0.31), nor a persistent grid that
+//   copies the next tile's ids by cp.async while it gathers this one (two
+//   stages, 2 blocks an SM: 0.31-0.33) was faster.
 //   ell_aggregate: the lanes lie across F instead, and the row's work is
 //   its live neighbours' feature-row gathers (a random 4F- or 2F-byte read
 //   each), so what bounds it is how many of them are in flight and how
@@ -73,8 +95,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 enum Op { COUNT_GE = 0, COUNT_GT = 1, SUM = 2, MAX = 3 };
@@ -83,6 +103,10 @@ enum DType { I32 = 0, I64 = 1, F32 = 2, BF16 = 3 };
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr long long kMaxBlocks = 132LL * 32;
+constexpr int kRows = kThreads;        // ell_stat: rows a tile, a thread each
+constexpr int kTileBytes = 80 * 1024;  // ell_stat: a tile's slots at most
+constexpr int kGathers = 8;            // ell_stat: gathers in flight a thread
+constexpr int kLoadVecs = 4;           // ell_stat: 16-byte id loads in flight
 constexpr int kPerLane = 4;  // ell_aggregate: features a lane holds
 constexpr int kUnroll = 8;   // ell_aggregate: gathers in flight a warp
 
@@ -119,81 +143,181 @@ __device__ __forceinline__ long long ext_row(int id, long long n) {
   return (r >= 0 && r < n) ? r : -1;
 }
 
+// ell_stat: one shared-memory slot of a tile, an id first and then the
+// entry's contribution: 4 bytes, but 8 for an int64 sum's or max's value
+template <typename T, int OP> struct Slot { using type = unsigned int; };
+template <> struct Slot<long long, SUM> { using type = unsigned long long; };
+template <> struct Slot<long long, MAX> { using type = unsigned long long; };
+
+__device__ __forceinline__ unsigned to_slot(int x) { return (unsigned)x; }
+__device__ __forceinline__ unsigned to_slot(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ unsigned long long to_slot(long long x) {
+  return (unsigned long long)x;
+}
+__device__ __forceinline__ void from_slot(unsigned s, int& x) { x = (int)s; }
+__device__ __forceinline__ void from_slot(unsigned s, float& x) { x = __uint_as_float(s); }
+__device__ __forceinline__ void from_slot(unsigned long long s, long long& x) {
+  x = (long long)s;
+}
+
+// four ids of one 16-byte load into four slots (two 16-byte stores for
+// 8-byte slots); p is 16-byte aligned
+__device__ __forceinline__ void store_ids(unsigned* p, int4 q) {
+  *reinterpret_cast<int4*>(p) = q;
+}
+__device__ __forceinline__ void store_ids(unsigned long long* p, int4 q) {
+  auto w = reinterpret_cast<ulonglong2*>(p);
+  w[0] = make_ulonglong2((unsigned)q.x, (unsigned)q.y);
+  w[1] = make_ulonglong2((unsigned)q.z, (unsigned)q.w);
+}
+
+// Stage the ids of rows [v0, v0 + rows) x columns [c0, c0 + cols) in
+// shared memory, entry (r, c) at slot r * cols + c of the returned tile.
+// Whole rows (cols == D) are one contiguous span of nbrs: read 16 bytes a
+// thread, kLoadVecs loads in flight before any store, with a scalar head
+// up to the first 16-byte boundary and a scalar tail; the tile starts sh
+// slots into buf so that the span's 16-byte words land on 16-byte words.
+// A chunk of a wider row is read an id a thread, coalesced along c.
+template <typename S>
+__device__ __forceinline__ S* load_tile(S* buf, const int* __restrict__ nbrs,
+                                        long long v0, int rows, long long D,
+                                        long long c0, int cols) {
+  const int t = threadIdx.x;
+  const int total = rows * cols;
+  if (cols != D) {
+    for (int e = t; e < total; e += kThreads) {
+      const int r = e / cols;
+      buf[e] = (S)(unsigned)nbrs[(v0 + r) * D + c0 + (e - r * cols)];
+    }
+    return buf;
+  }
+  const int* src = nbrs + v0 * D;
+  const int sh = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min((4 - sh) & 3, total);
+  S* tile = buf + sh;
+  if (t < head) tile[t] = (S)(unsigned)src[t];
+  const int nvec = (total - head) >> 2;
+  const int4* vsrc = reinterpret_cast<const int4*>(src + head);
+  for (int i0 = t; i0 < nvec; i0 += kThreads * kLoadVecs) {
+    int4 q[kLoadVecs];
+#pragma unroll
+    for (int u = 0; u < kLoadVecs; ++u)
+      if (i0 + u * kThreads < nvec) q[u] = __ldcs(vsrc + i0 + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kLoadVecs; ++u)
+      if (i0 + u * kThreads < nvec) store_ids(tile + head + 4 * (i0 + u * kThreads), q[u]);
+  }
+  const int done = head + 4 * nvec;
+  if (t < total - done) tile[done + t] = (S)(unsigned)src[done + t];
+  return tile;
+}
+
+// Resolve the tile's entries and write each one's contribution over its
+// id: a thread takes entries t, t + kThreads, ... and issues kGathers
+// gathers of vals before it uses any. count_ge / count_gt: 1 for a
+// neighbour that compares true against its row's self value; sum: the
+// value, 0 for a pad; max: the value, the sentinel for a pad, and the row
+// marked as holding a neighbour.
+template <typename T, int OP, typename S>
+__device__ __forceinline__ void gather_tile(S* tile, int total, int cols,
+                                            const T* __restrict__ vals,
+                                            const T* selfs,
+                                            unsigned char* has, long long n) {
+  const T neg = T(-(1 << 30));
+  const int t = threadIdx.x;
+  // the row and column of the thread's entry, stepped kThreads entries at
+  // a time (only the counts and max read them)
+  int r = t / cols, c = t - r * cols;
+  const int sr = kThreads / cols, sc = kThreads - sr * cols;
+  for (int e0 = t; e0 < total; e0 += kThreads * kGathers) {
+    T x[kGathers];
+    bool live[kGathers];
+#pragma unroll
+    for (int u = 0; u < kGathers; ++u) {
+      const int e = e0 + u * kThreads;
+      const int id = e < total ? (int)(unsigned)tile[e] : 0;
+      live[u] = e < total && (long long)id < n;
+      const long long at = live[u] ? ext_row(id, n) : -1;
+      x[u] = at >= 0 ? __ldg(vals + at) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kGathers; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < total) {
+        if constexpr (OP == COUNT_GE) tile[e] = live[u] && x[u] >= selfs[r];
+        if constexpr (OP == COUNT_GT) tile[e] = live[u] && x[u] > selfs[r];
+        if constexpr (OP == SUM) tile[e] = to_slot(x[u]);
+        if constexpr (OP == MAX) {
+          tile[e] = to_slot(live[u] ? x[u] : neg);
+          if (live[u]) has[r] = 1;
+        }
+      }
+      c += sc;
+      r += sr;
+      if (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+  }
+}
+
+// A block owns kRows consecutive rows and one thread folds each. Per chunk
+// of at most C columns (all of D when the tile fits kTileBytes): stage the
+// ids, gather, then fold the row's slots in column order from shared
+// memory, the accumulator carried in registers from chunk to chunk.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
 ell_stat_kernel(const int* __restrict__ nbrs, const T* __restrict__ vals,
                 const T* __restrict__ self_vals, T* __restrict__ out,
-                long long n, long long D) {
+                long long n, long long D, int C) {
   using A = typename Acc<T>::type;
-  const int lane = threadIdx.x & 31;
-  const long long warp0 = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const long long stride = (long long)gridDim.x * kWarps;
-  const T neg = T(-(1 << 30));
-  for (long long v = warp0; v < n; v += stride) {
-    const int* row = nbrs + v * D;
-    if constexpr (OP == SUM && std::is_floating_point<T>::value) {
-      // column order: every lane adds the chunk's 32 values in j order
-      A sum = A(0);
-      for (long long j0 = 0; j0 < D; j0 += 32) {
-        const long long j = j0 + lane;
-        A x = A(0);
-        if (j < D) {
-          const int id = row[j];
-          const long long r = (long long)id < n ? ext_row(id, n) : -1;
-          if (r >= 0) x = (A)vals[r];
+  using S = typename Slot<T, OP>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* selfs = reinterpret_cast<T*>(smem);
+  unsigned char* has = smem + kRows * sizeof(T);
+  S* buf = reinterpret_cast<S*>(has + kRows);
+  const int t = threadIdx.x;
+  const long long v0 = (long long)blockIdx.x * kRows;
+  const int rows = n - v0 < kRows ? (int)(n - v0) : kRows;
+  if (OP == COUNT_GE || OP == COUNT_GT) selfs[t] = t < rows ? self_vals[v0 + t] : T(0);
+  if (OP == MAX) has[t] = 0;
+  unsigned cnt = 0;
+  A sum = A(0);
+  T mx = T(0);
+  bool first = true;
+  for (long long c0 = 0; c0 < D; c0 += C) {
+    const int cols = D - c0 < C ? (int)(D - c0) : C;
+    S* tile = load_tile(buf, nbrs, v0, rows, D, c0, cols);
+    __syncthreads();
+    gather_tile<T, OP>(tile, rows * cols, cols, vals, selfs, has, n);
+    __syncthreads();
+    if (t < rows) {
+      const S* row = tile + t * cols;
+#pragma unroll 4
+      for (int j = 0; j < cols; ++j) {
+        const S s = row[j];
+        if constexpr (OP == COUNT_GE || OP == COUNT_GT) {
+          cnt += (unsigned)s;
+        } else {
+          T x;
+          from_slot(s, x);
+          if (OP == SUM) sum += (A)x;
+          if (OP == MAX) {
+            mx = first ? x : max_nan(mx, x);
+            first = false;
+          }
         }
-        const int m = D - j0 < 32 ? (int)(D - j0) : 32;
-        for (int s = 0; s < m; ++s) sum += __shfl_sync(0xffffffffu, x, s);
-      }
-      if (lane == 0) out[v] = (T)sum;
-      continue;
-    }
-    const T mine = self_vals[v];
-    unsigned cnt = 0;  // neighbours (count ops: matching neighbours)
-    A sum = A(0);
-    T mx = neg;
-    bool pad = false, any = false, first = true;
-    for (long long j = lane; j < D; j += 32) {
-      const int id = row[j];
-      const bool valid = (long long)id < n;
-      if (!valid) {
-        pad = true;
-        continue;
-      }
-      const long long r = ext_row(id, n);
-      const T x = r >= 0 ? vals[r] : T(0);
-      if (OP == COUNT_GE) cnt += x >= mine;
-      if (OP == COUNT_GT) cnt += x > mine;
-      if (OP == SUM) sum += (A)x;
-      if (OP == MAX) {
-        mx = first ? x : max_nan(mx, x);
-        first = false;
-        any = true;
       }
     }
-    if (OP == MAX) {
-      // fold the lanes: a lane with neither a neighbour nor a pad entry
-      // holds nothing; the sentinel joins wherever the row has a pad entry
-      bool has = any;
-      for (int o = 16; o > 0; o >>= 1) {
-        const T m2 = __shfl_xor_sync(0xffffffffu, mx, o);
-        const bool h2 = __shfl_xor_sync(0xffffffffu, (int)has, o);
-        mx = !has ? m2 : !h2 ? mx : max_nan(mx, m2);
-        has = has || h2;
-      }
-      const bool row_pad = __any_sync(0xffffffffu, pad);
-      if (lane == 0) {
-        T res = T(0);
-        if (has) res = row_pad ? max_nan(mx, neg) : mx;
-        out[v] = res;
-      }
-    } else if (OP == SUM) {
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) out[v] = (T)sum;
-    } else {
-      for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-      if (lane == 0) out[v] = (T)(A)cnt;
-    }
+    if (c0 + C < D) __syncthreads();  // the next chunk rewrites the tile
+  }
+  if (t < rows) {
+    T res;
+    if (OP == COUNT_GE || OP == COUNT_GT) res = (T)(A)cnt;
+    if (OP == SUM) res = (T)sum;
+    if (OP == MAX) res = has[t] ? mx : T(0);
+    out[v0 + t] = res;
   }
 }
 
@@ -348,6 +472,27 @@ unsigned blocks_for(long long rows) {
   return (unsigned)(b < 1 ? 1 : b);
 }
 
+template <typename T, int OP>
+int launch_stat_op(const int* nb, const T* va, const T* sv, T* o, long long n,
+                   long long D, cudaStream_t st) {
+  using S = typename Slot<T, OP>::type;
+  // columns a tile: all of D while the tile fits kTileBytes
+  const long long cap = kTileBytes / (kRows * (long long)sizeof(S));
+  const int C = (int)(D < cap ? D : cap);
+  // self values, row marks, the tile and the up to 3 slots of its shift
+  const size_t smem = kRows * (sizeof(T) + 1) + ((size_t)kRows * C + 4) * sizeof(S);
+  auto kernel = ell_stat_kernel<T, OP>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long g = (n + kRows - 1) / kRows;
+  if (g > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)g, kThreads, smem, st>>>(nb, va, sv, o, n, D, C);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_stat(const void* nbrs, const void* vals, const void* self_vals,
                 void* out, long long n, long long D, int op, cudaStream_t st) {
@@ -355,15 +500,13 @@ int launch_stat(const void* nbrs, const void* vals, const void* self_vals,
   auto va = (const T*)vals;
   auto sv = (const T*)self_vals;
   auto o = (T*)out;
-  const unsigned g = blocks_for(n);
   switch (op) {
-    case COUNT_GE: ell_stat_kernel<T, COUNT_GE><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
-    case COUNT_GT: ell_stat_kernel<T, COUNT_GT><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
-    case SUM: ell_stat_kernel<T, SUM><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
-    case MAX: ell_stat_kernel<T, MAX><<<g, kThreads, 0, st>>>(nb, va, sv, o, n, D); break;
+    case COUNT_GE: return launch_stat_op<T, COUNT_GE>(nb, va, sv, o, n, D, st);
+    case COUNT_GT: return launch_stat_op<T, COUNT_GT>(nb, va, sv, o, n, D, st);
+    case SUM: return launch_stat_op<T, SUM>(nb, va, sv, o, n, D, st);
+    case MAX: return launch_stat_op<T, MAX>(nb, va, sv, o, n, D, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int OP>

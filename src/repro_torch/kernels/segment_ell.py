@@ -20,8 +20,10 @@ no neighbour gives 0 for every op, ``max`` folds its sentinel
 ``vals``' dtype, as the Pallas kernel's cast back does.
 
 On a CUDA tensor a wrapper launches its kernel from
-``csrc/segment_ell.cu`` (one warp a row, the reduction in registers; see
-the source for what bounds it) or raises; it never falls back. The
+``csrc/segment_ell.cu`` (``ell_stat``: a tile of 256 rows staged in
+shared memory, one thread folding each row in column order;
+``ell_aggregate``: a warp a row; see the source for what bounds each) or
+raises; it never falls back. The
 kernels are forward-only. On a CPU tensor it runs the plain version
 beside it (``*_plain``).
 """

@@ -468,6 +468,34 @@ def _ell(n, d, seed, neg=False):
     return torch.from_numpy(nbrs.astype(np.int32)).to(_card())
 
 
+def _real_vals(n, seed):
+    """float32 values of mixed sign and of magnitudes 1e-3 to 1e3: their
+    sums depend on the order of the adds."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, size=n)
+    return torch.from_numpy(vals.astype(np.float32)).to(_card())
+
+
+def _int_vals(n, dtype, seed):
+    """Integer values in [-50, 50), every 11th below the max sentinel
+    (-(2**30)), in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-50, 50, size=n)
+    vals[::11] = -(2**31) + 5
+    return torch.from_numpy(vals).to(dtype).to(_card())
+
+
+def _check_stat(nbrs, vals, op):
+    """The kernel against its plain version, bit for bit, in one launch."""
+    key = f"ell_stat[{op},{TAG[vals.dtype]}]"
+    before = SE.LAUNCHES[key]
+    got = ops.ell_stat_op(nbrs, vals, vals, op)
+    torch.cuda.synchronize()
+    assert SE.LAUNCHES[key] == before + 1
+    want = SE.ell_stat_plain(nbrs, vals, vals, op)
+    assert got.dtype == want.dtype == vals.dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
 @pytest.mark.parametrize("op", ["count_ge", "count_gt", "sum", "max"])
 @pytest.mark.parametrize("n,d,neg", [(300, 17, False), (4096, 40, True),
@@ -476,34 +504,72 @@ def test_ell_stat_kernel_matches_plain(dtype, op, n, d, neg):
     """Bit for bit: values below -(2**30) exercise the max sentinel, the
     integer sums' wrap and float32 sums that round (the kernel adds in
     the plain version's column order)."""
-    nbrs = _ell(n, d, seed=n + d, neg=neg)
-    rng = np.random.default_rng(1)
-    vals = rng.integers(-50, 50, size=n)
-    vals[::11] = -(2**31) + 5
-    vals = torch.from_numpy(vals).to(dtype).to(_card())
-    key = f"ell_stat[{op},{TAG[dtype]}]"
-    before = SE.LAUNCHES[key]
-    got = ops.ell_stat_op(nbrs, vals, vals, op)
-    torch.cuda.synchronize()
-    assert SE.LAUNCHES[key] == before + 1
-    want = SE.ell_stat_plain(nbrs, vals, vals, op)
-    assert got.dtype == want.dtype == dtype and torch.equal(got, want)
+    _check_stat(_ell(n, d, seed=n + d, neg=neg), _int_vals(n, dtype, 1), op)
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
-@pytest.mark.parametrize("n,d", [(300, 17), (4096, 40), (500, 100)])
+@pytest.mark.parametrize("n,d", [(300, 17), (4096, 40), (500, 100),
+                                 (1000, 38), (513, 1), (70, 3000)])
 def test_ell_stat_float_kernel_is_bit_exact_on_real_values(op, n, d):
-    """float32 values of mixed sign and of magnitudes 1e-3 to 1e3, whose
-    sums depend on the order of the adds: still bit for bit (tolerance
-    0), since the kernel adds in column order as the plain version
-    does."""
-    nbrs = _ell(n, d, seed=n, neg=True)
-    rng = np.random.default_rng(n + d)
-    vals = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, size=n)
-    vals = torch.from_numpy(vals.astype(np.float32)).to(_card())
-    got = ops.ell_stat_op(nbrs, vals, vals, op)
-    want = SE.ell_stat_plain(nbrs, vals, vals, op)
-    assert torch.equal(got, want)
+    """float32 values whose sums depend on the order of the adds: still
+    bit for bit (tolerance 0), since each row's thread adds its slots in
+    column order, as the plain version does, across column chunks too
+    (D = 3000)."""
+    _check_stat(_ell(n, d, seed=n, neg=True), _real_vals(n, n + d), op)
+
+
+def _tile_case(case):
+    """The tile's edges: D = 1; D = 3000, several column chunks a row;
+    n = 513, not a multiple of the 256-row tile; ``nbrs[1:]`` of a matrix
+    with D = 37, a contiguous view whose base is not 16-byte aligned (the
+    scalar head and tail); half the rows all pads and ids in [-(n + 3),
+    0) in the rest."""
+    if case == "d1":
+        return _ell(1000, 1, seed=1, neg=True)
+    if case == "d3000":
+        return _ell(70, 3000, seed=2, neg=True)
+    if case == "n513":
+        return _ell(513, 38, seed=3, neg=True)
+    if case == "unaligned":
+        # the view's n is 600: ids 600 and 601 are pads of its rows
+        nbrs = _ell(601, 37, seed=4, neg=True)[1:]
+        assert nbrs.is_contiguous() and nbrs.data_ptr() % 16
+        return nbrs
+    nbrs = _ell(600, 38, seed=5, neg=True)
+    nbrs[:300] = 600
+    return nbrs
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+@pytest.mark.parametrize("op", ["count_ge", "count_gt", "sum", "max"])
+@pytest.mark.parametrize("case", ["d1", "d3000", "n513", "unaligned",
+                                  "all_pads"])
+def test_ell_stat_kernel_tile_edges_match_plain(dtype, op, case):
+    """Bit for bit at the edges of the tile design, every op and dtype:
+    integer values with some below the max sentinel, float32 values whose
+    sums depend on the order of the adds."""
+    nbrs = _tile_case(case)
+    n = nbrs.shape[0]
+    vals = (_real_vals(n, n) if dtype == torch.float32
+            else _int_vals(n, dtype, n))
+    _check_stat(nbrs, vals, op)
+
+
+def test_ell_stat_kernel_runs_the_designed_instructions():
+    """Every ell_stat_kernel instance (4 ops x int32, int64, float32)
+    reads its ids 128 bits at a time (LDG.E...128), stages them in shared
+    memory (STS, LDS) between block barriers (BAR), and shuffles nothing:
+    the float32 sum folds each row in column order from shared memory,
+    with no serial SHFL walk."""
+    _card()
+    sass = _sass_by_function(build_lib.build())
+    fns = {n: t for n, t in sass.items() if "ell_stat_kernel" in n}
+    assert len(fns) == 12, sorted(sass)
+    wide = re.compile(r"LDG\.E\S*\.128")
+    for name, text in fns.items():
+        assert wide.search(text), name
+        assert all(op in text for op in ("STS", "LDS", "BAR")), name
+        assert "SHFL" not in text, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
