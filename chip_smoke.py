@@ -3,7 +3,7 @@
 card: builds the Hopper kernels from this checkout, checks each against
 its plain PyTorch version, and drives the main paths — one mixed batch
 at a time through ``CoreMaintainer.apply_batch`` on the unified engine,
-unweighted and weighted — at full width.
+unweighted and weighted, and on the host engine — at full width.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -18,7 +18,10 @@ Phases:
      replays on weighted maintainers with random weights 1-5 on every
      insert list, cores checked against the weighted peeling oracle,
      and cores, labels, the weight column and the statistics equal
-     between the two backends;
+     between the two backends. The unweighted replays also run on an
+     ``engine="host"`` maintainer with ``batch`` free slots (so it
+     compacts): cores against BZ, labels equal to the unified replay's,
+     no kernel launched;
   3. each kernel against its plain version on the main path's state
      (the RMAT graph of phase 4: window of ~2^24 slots, n = 2^21), with
      0 mismatches required, timed with CUDA events beside its byte bound
@@ -37,7 +40,18 @@ Phases:
      batches each mask's popcount and share of touched live slots are
      printed, and ``din`` and ``same_in`` are held to their plain
      versions and timed on phase 3's window under the median-touch and
-     the max-touch mask (``path_mask_*`` keys of their rows);
+     the max-touch mask (``path_mask_*`` keys of their rows). Then the
+     applications on the final state: ``kcore_edge_mask(m, kmax)`` and
+     ``densest_region_vertices`` against their numpy definitions;
+ 4b. phase 4's batches on ``from_graph(init="jax-peel", engine="host")``
+     of the same graph (the seed two-call path: host dedup against the
+     ``edge_slot`` dict, plain PyTorch fixpoints on the card): after each
+     batch the cores, labels, ``n_inserted`` and ``n_removed`` equal
+     phase 4's, and no kernel launch counter moved; per batch the wall
+     time split into host dedup, device fixpoints, renumber gate and
+     compaction, with the rounds; once the time to build the
+     ``edge_slot`` dict; at the end the cores against a fresh peel and
+     the k-order certificate;
   5. the weighted main path on the same graph with weights 1-5:
      ``from_graph(weighted=True, weights=...)``, the same burst removed
      and re-inserted with its own weights, then phase 4's mixed batches
@@ -80,7 +94,7 @@ Phases:
      and its launches are that instance's.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
-at the same size.
+at the same size (``--engine host``: on the host engine).
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -218,8 +232,12 @@ def apply_delta(live: set, ins, rm) -> None:
 def phase_small(device, n: int, m: int, n_batches: int, batch: int,
                 backend: str, yardstick: str) -> None:
     """Replay both streams with ``backend`` and ``yardstick`` side by
-    side; BZ oracle after every batch."""
+    side, and on an ``engine="host"`` maintainer whose table holds
+    ``batch`` free slots (so it compacts and grows); BZ oracle after
+    every batch, and the host engine's labels equal to the unified
+    replay's."""
     from repro_torch.core.api import CoreMaintainer
+    from repro_torch.kernels import coremaint as K
     from repro_torch.core.oracle import bz_core_decomposition
     from repro_torch.graph.generators import erdos_renyi, rmat
     from repro_torch.graph.stream import churn_stream, mixed_stream
@@ -235,13 +253,25 @@ def phase_small(device, n: int, m: int, n_batches: int, batch: int,
                                           kernel_backend=backend)
             b = CoreMaintainer.from_graph(g, device=device,
                                           kernel_backend=yardstick)
+            c = CoreMaintainer.from_graph(g, device=device, engine="host",
+                                          capacity=g.m + batch)
+            host = HostSplit(c)
             live = {tuple(e) for e in g.edge_array().tolist()}
             t0 = time.perf_counter()
+            t_host = 0.0
             for ev in stream:
                 sa = a.apply_batch(insert_edges=ev.edges,
                                    remove_edges=ev.removals)
                 sb = b.apply_batch(insert_edges=ev.edges,
                                    remove_edges=ev.removals)
+                before = dict(K.LAUNCHES)
+                t1 = time.perf_counter()
+                sc = c.apply_batch(insert_edges=ev.edges,
+                                   remove_edges=ev.removals)
+                t_host += time.perf_counter() - t1
+                check(K.LAUNCHES == before,
+                      f"phase 2 {gname}/{sname} t={ev.t}: the host engine "
+                      f"launched a kernel")
                 apply_delta(live, ev.edges, ev.removals)
                 adj = [set() for _ in range(g.n)]
                 for u, v in live:
@@ -259,9 +289,23 @@ def phase_small(device, n: int, m: int, n_batches: int, batch: int,
                           f"phase 2 {gname}/{sname} t={ev.t}: stats.{f}")
                 check(a.live_edges == len(live),
                       f"phase 2 {gname}/{sname}: live edge count")
+                check(np.array_equal(c.cores(), want)
+                      and np.array_equal(c.labels(), a.labels()),
+                      f"phase 2 {gname}/{sname} t={ev.t}: host engine != "
+                      f"BZ / unified labels")
+                for f in ("n_inserted", "n_removed"):
+                    check(int(getattr(sc, f)) == int(getattr(sa, f)),
+                          f"phase 2 {gname}/{sname} t={ev.t}: host stats.{f}")
+                check(c.live_edges == len(c.edge_slot) == len(live),
+                      f"phase 2 {gname}/{sname}: host live edge count")
+            host.restore()
             log(f"phase 2 {gname}/{sname}: n={g.n} m={g.m} "
                 f"{n_batches} batches of {batch}: BZ ok, {backend} == "
-                f"{yardstick} bit for bit ({time.perf_counter() - t0:.2f} s)")
+                f"{yardstick} bit for bit ({time.perf_counter() - t0:.2f} s); "
+                f"engine='host': BZ ok, labels == unified, no kernel "
+                f"launched, {host.calls['_compact']} compactions, "
+                f"{host.calls['_grow']} growths, capacity {g.m + batch} -> "
+                f"{c.capacity} ({t_host:.2f} s)")
 
 
 def phase_small_weighted(device, n: int, m: int, n_batches: int,
@@ -315,6 +359,45 @@ def phase_small_weighted(device, n: int, m: int, n_batches: int,
                 f"{n_batches} batches of {batch}, weights 1-{MAX_WEIGHT}: "
                 f"weighted oracle ok, {backend} == {yardstick} bit for bit "
                 f"({time.perf_counter() - t0:.2f} s)")
+
+
+class HostSplit:
+    """Where an ``engine="host"`` maintainer's time goes: wraps the
+    device halves (``insert_batch`` and ``remove_batch`` as
+    ``core/api.py`` calls them), the renumber gate, ``_compact`` and
+    ``_grow`` of maintainer ``m``, each timed between device syncs and
+    counted. A batch's wall less these parts is the host's share: the
+    dedup against the ``edge_slot`` dict, the lane copies, the syncs.
+    ``restore()`` puts the module's functions back."""
+
+    MODULE = ("insert_batch", "remove_batch")
+    METHODS = ("_maybe_renumber", "_compact", "_grow")
+
+    def __init__(self, m) -> None:
+        import repro_torch.core.api as api
+        self.api, self.device = api, m.device
+        self.secs = dict.fromkeys(self.MODULE + self.METHODS, 0.0)
+        self.calls = dict.fromkeys(self.MODULE + self.METHODS, 0)
+        self.saved = {k: getattr(api, k) for k in self.MODULE}
+        for k in self.MODULE:
+            setattr(api, k, self._timed(k, self.saved[k]))
+        for k in self.METHODS:
+            setattr(m, k, self._timed(k, getattr(m, k)))
+
+    def _timed(self, key, fn):
+        def run(*a, **kw):
+            sync(self.device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(self.device)
+            self.secs[key] += time.perf_counter() - t0
+            self.calls[key] += 1
+            return out
+        return run
+
+    def restore(self) -> None:
+        for k, fn in self.saved.items():
+            setattr(self.api, k, fn)
 
 
 class WeightMirror:
@@ -549,8 +632,10 @@ def certificate_ok(m) -> bool:
 
 def phase_main(device, m, g, sample, stream) -> tuple:
     """The main path: burst removal, its re-insertion, mixed batches.
-    Returns the launch counts and the ``(stat, mask)`` list that
-    ``record_masks`` kept over the burst pair."""
+    Returns the launch counts, the ``(stat, mask)`` list that
+    ``record_masks`` kept over the burst pair, and per batch its name,
+    wall time, ``n_inserted``, ``n_removed`` and host copies of the
+    cores and labels after it (phase 4b's yardstick)."""
     import torch
     from repro_torch.core.decomposition import peel_decomposition
     from repro_torch.kernels import coremaint as K
@@ -562,6 +647,7 @@ def phase_main(device, m, g, sample, stream) -> tuple:
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    history = []
 
     def run(name, ins, rm):
         before = dict(K.LAUNCHES)
@@ -570,6 +656,10 @@ def phase_main(device, m, g, sample, stream) -> tuple:
         st = m.apply_batch(insert_edges=ins, remove_edges=rm)
         sync(device)
         dt = time.perf_counter() - t0
+        history.append(dict(name=name, wall_s=dt,
+                            n_inserted=int(st.n_inserted),
+                            n_removed=int(st.n_removed), cores=m.cores(),
+                            labels=m.labels()))
         moved = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                  if K.LAUNCHES[k] != before[k]}
         log(f"phase 4 {name}: wall_s={dt:.4f} "
@@ -600,7 +690,130 @@ def phase_main(device, m, g, sample, stream) -> tuple:
         "phase 4: live edge count")
     log(f"phase 4: cores == fresh peel of the final live edge set, "
         f"certificate holds ({time.perf_counter() - t0:.1f} s)")
-    return launches, recorded
+    return launches, recorded, history
+
+
+def phase_applications(m) -> None:
+    """The applications of ``core/applications.py`` on phase 4's final
+    state: ``kcore_edge_mask(m, kmax)`` against the same mask computed
+    in numpy from the slot table, ``densest_region_vertices`` against
+    its definition."""
+    import torch
+    from repro_torch.core import applications as A
+
+    t0 = time.perf_counter()
+    core = m.core.cpu().numpy()
+    src, dst = m.src.cpu().numpy(), m.dst.cpu().numpy()
+    valid = m.valid.cpu().numpy()
+    kmax = int(core.max())
+    mask = A.kcore_edge_mask(m, kmax)
+    check(mask.dtype == torch.bool and mask.device == m.device,
+          "phase 4 applications: kcore_edge_mask dtype/device")
+    keep = core >= kmax
+    want = valid & keep[src] & keep[dst]
+    check(np.array_equal(mask.cpu().numpy(), want),
+          "phase 4 applications: kcore_edge_mask != numpy")
+    top_frac = 0.01
+    got = A.densest_region_vertices(m, top_frac)
+    want_v = np.nonzero(core == kmax)[0]
+    k = kmax
+    while want_v.size < max(1, int(top_frac * m.n)) and k > 0:
+        k -= 1
+        want_v = np.nonzero(core >= k)[0]
+    check(np.array_equal(got, want_v),
+          "phase 4 applications: densest_region_vertices != numpy")
+    log(f"phase 4 applications: kcore_edge_mask(kmax={kmax}) == numpy "
+        f"({int(want.sum())} edges of the {kmax}-core), "
+        f"densest_region_vertices(top_frac={top_frac}) == numpy "
+        f"({got.size} vertices, cores >= {k}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_host(device, g, sample, stream, history) -> None:
+    """Phase 4's batches on an ``engine="host"`` maintainer built from
+    the same graph: after each batch the cores, labels, ``n_inserted``
+    and ``n_removed`` equal phase 4's (``history``), and no kernel
+    launch counter moved; per batch the wall time and its split (host
+    dedup, device fixpoints, renumber gate, compaction); at the end the
+    cores against a fresh peel and the k-order certificate."""
+    import torch
+    from repro_torch.core.api import CoreMaintainer
+    from repro_torch.core.decomposition import peel_decomposition
+    from repro_torch.kernels import coremaint as K
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fm_interaction as FM
+    from repro_torch.kernels import segment_ell as SE
+
+    def counters():
+        return {f"{mod.__name__}.{k}": v
+                for mod in (K, SE, FM, FA) for k, v in mod.LAUNCHES.items()}
+
+    t0 = time.perf_counter()
+    m = CoreMaintainer.from_graph(g, init="jax-peel", device=device,
+                                  engine="host")
+    sync(device)
+    log(f"phase 4b from_graph(init='jax-peel', engine='host'): "
+        f"capacity={m.capacity} n_edges={int(m.n_edges)} "
+        f"kernel_backend={m.kernel_backend} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(m.kernel_backend == "torch", "phase 4b: kernel_backend")
+    t0 = time.perf_counter()
+    n_slots = len(m.edge_slot)
+    log(f"phase 4b edge_slot dict: {n_slots} entries built in "
+        f"{time.perf_counter() - t0:.1f} s (once, on first use)")
+    batches = [("burst remove", None, sample),
+               ("burst insert", sample, None)]
+    batches += [(f"mixed {ev.t}", ev.edges, ev.removals) for ev in stream]
+    check(len(batches) == len(history), "phase 4b: batch count")
+    split = HostSplit(m)
+    start = counters()
+    try:
+        for (name, ins, rm), want in zip(batches, history):
+            secs = dict(split.secs)
+            sync(device)
+            t0 = time.perf_counter()
+            st = m.apply_batch(insert_edges=ins, remove_edges=rm)
+            sync(device)
+            dt = time.perf_counter() - t0
+            part = {k: split.secs[k] - secs[k] for k in secs}
+            fix = part["insert_batch"] + part["remove_batch"]
+            ren = part["_maybe_renumber"]
+            rest = part["_compact"] + part["_grow"]
+            host = dt - fix - ren - rest
+            check(np.array_equal(m.cores(), want["cores"]),
+                  f"phase 4b {name}: cores != phase 4")
+            check(np.array_equal(m.labels(), want["labels"]),
+                  f"phase 4b {name}: labels != phase 4")
+            for f in ("n_inserted", "n_removed"):
+                check(int(getattr(st, f)) == want[f],
+                      f"phase 4b {name}: {f} != phase 4")
+            check(counters() == start,
+                  f"phase 4b {name}: a kernel launch counter moved")
+            log(f"phase 4b {name}: wall_s={dt:.4f} (unified "
+                f"{want['wall_s']:.4f}) host_dedup_s={host:.4f} "
+                f"device_fixpoints_s={fix:.4f} renumber_gate_s={ren:.4f} "
+                f"compact_grow_s={rest:.4f} "
+                f"remove_rounds={int(st.remove_rounds)} "
+                f"insert_rounds={int(st.insert_rounds)} "
+                f"n_removed={int(st.n_removed)} "
+                f"n_inserted={int(st.n_inserted)} "
+                f"n_dropped={int(st.n_dropped)} "
+                f"n_promoted={int(st.n_promoted)} "
+                f"renumbered={bool(st.renumbered)} "
+                f"high_water={int(st.high_water)}: cores, labels == phase 4")
+    finally:
+        split.restore()
+    log(f"phase 4b calls={json.dumps(split.calls)} "
+        f"launch counters unmoved ({sum(start.values())} before and after)")
+    t0 = time.perf_counter()
+    want, _ = peel_decomposition(m.src, m.dst, m.valid, m.n)
+    check(torch.equal(m.core, want), "phase 4b: cores != fresh peel")
+    check(certificate_ok(m), "phase 4b: k-order certificate violated")
+    check(m.live_edges == len(m.edge_slot) == g.m + sum(
+        len(ev.edges) - len(ev.removals) for ev in stream),
+        "phase 4b: live edge count")
+    log(f"phase 4b: cores == fresh peel of the final live edge set, "
+        f"certificate holds ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_path_masks(device, snap, recorded, rows, iters: int) -> None:
@@ -1228,10 +1441,11 @@ def main() -> int:
     stream = list(mixed_stream(g, MIXED_BATCHES, MIXED_SIZE, seed=0))
     log(f"phase 4 mixed_stream: {MIXED_BATCHES} batches of {MIXED_SIZE} "
         f"sampled in {time.perf_counter() - t0:.1f} s (host set-up)")
-    launches, recorded = phase_main(device, m, g, g.edge_array()[pick],
-                                    stream)
+    launches, recorded, history = phase_main(
+        device, m, g, g.edge_array()[pick], stream)
     phase_path_masks(device, snap, recorded, rows, ITERS)
     del snap, recorded
+    phase_applications(m)
     for r in rows:
         r["launches"] = launches[r["name"]]
         # the unified engine fuses the mcd_hi_dout / hi_dout passes into
@@ -1239,6 +1453,11 @@ def main() -> int:
         r["status"] = ("on the main path" if r["name"] in MAIN_PATH_KERNELS
                        else "ported, off the main path")
     del m
+    torch.cuda.empty_cache()
+
+    # ---- phase 4b: the same batches on engine="host" ---------------------
+    phase_host(device, g, g.edge_array()[pick], stream, history)
+    del history
 
     # ---- weighted main path set-up (phase 3 runs on its state) ----------
     w0 = np.random.default_rng(1).integers(1, MAX_WEIGHT + 1, g.m)

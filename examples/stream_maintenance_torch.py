@@ -1,0 +1,207 @@
+"""A streaming core-maintenance service on PyTorch, end to end (the port
+``repro_torch``; ``examples/stream_maintenance.py`` is its counterpart
+on the JAX package).
+
+Consumes batches of edge events (the paper's workload: bursts of inserted/
+removed edges that must be absorbed on time), maintains core numbers +
+k-order, checkpoints atomically, and auto-resumes after a crash. The
+checkpoints are the payload both packages read and write.
+
+    python examples/stream_maintenance_torch.py                  # on the card
+    python examples/stream_maintenance_torch.py --device cpu --mixed --verify
+    python examples/stream_maintenance_torch.py --engine host --verify
+    python examples/stream_maintenance_torch.py --simulate-crash  # exits 17;
+    python examples/stream_maintenance_torch.py                  # ...resumes
+    python examples/stream_maintenance_torch.py --weighted --verify
+    python examples/stream_maintenance_torch.py --window 6
+"""
+import argparse
+import os
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.core.api import CoreMaintainer  # noqa: E402
+from repro_torch.core.oracle import bz_from_csr  # noqa: E402
+from repro_torch.core.weighted import weighted_core_oracle  # noqa: E402
+from repro_torch.graph.csr import build_csr  # noqa: E402
+from repro_torch.graph.generators import erdos_renyi  # noqa: E402
+from repro_torch.graph.stream import (mixed_stream,  # noqa: E402
+                                      sliding_window_stream,
+                                      synthetic_stream)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=5000)
+    ap.add_argument("--m", type=int, default=20000)
+    ap.add_argument("--batches", type=int, default=40)
+    ap.add_argument("--batch-size", type=int, default=256)
+    ap.add_argument("--ckpt", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_stream_ckpt.npz"))
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--simulate-crash", action="store_true")
+    ap.add_argument("--verify", action="store_true")
+    ap.add_argument(
+        "--mixed", action="store_true",
+        help="mixed insert+remove batches, one apply_batch call per batch",
+    )
+    ap.add_argument(
+        "--engine", default="unified",
+        choices=("unified", "host", "sharded"),
+        help="unified = one device program per batch; host = the seed "
+             "two-call path (host dedup, plain PyTorch fixpoints); "
+             "sharded is not ported yet",
+    )
+    ap.add_argument(
+        "--weighted", action="store_true",
+        help="maintain WEIGHTED coreness (weighted h-index, Zhou et al. "
+             "WWW'21): random integer edge weights, verified against the "
+             "weighted peeling oracle under --verify; needs --engine "
+             "unified",
+    )
+    ap.add_argument(
+        "--window", type=int, default=None, metavar="W",
+        help="replay a sliding-window TEMPORAL stream instead of the "
+             "synthetic one: timestamped arrivals, each edge expiring W "
+             "steps after its latest arrival (bulk removals by age), "
+             "starting from an empty graph and draining back to empty",
+    )
+    ap.add_argument(
+        "--device", default="cuda",
+        help="torch device of the maintainer (cuda: the card; cpu runs "
+             "the plain PyTorch backend)",
+    )
+    args = ap.parse_args()
+    if args.engine == "sharded":
+        ap.error("--engine sharded (the multi-GPU engines) is not ported "
+                 "yet: ROADMAP Queue 1 B")
+    if args.weighted and args.engine == "host":
+        ap.error("--weighted needs a device engine (unified)")
+    if args.window is not None and args.window < 1:
+        ap.error("--window must be >= 1")
+
+    if args.window is not None:
+        # timestamped arrivals over a --batches-step horizon; the window
+        # expiry turns them into mixed insert+removal events (removals
+        # by AGE — the paper's temporal workload) that start from an
+        # empty graph and drain it back to empty
+        srng = np.random.default_rng(42)
+        arrivals = args.batches * args.batch_size
+        ewt = np.stack(
+            [srng.integers(0, args.n, arrivals),
+             srng.integers(0, args.n, arrivals),
+             srng.integers(0, args.batches, arrivals)], axis=1,
+        ).astype(np.int64)
+        events = list(sliding_window_stream(ewt, window=args.window))
+        g = build_csr(args.n, np.zeros((0, 2), np.int64))
+    else:
+        g = erdos_renyi(args.n, args.m, seed=0)
+        stream = mixed_stream if args.mixed else synthetic_stream
+        events = list(stream(g, args.batches, args.batch_size, seed=42))
+    # the weight stream is regenerated from the same seed on resume, so
+    # a restarted run replays identical per-batch insert weights
+    wrng = np.random.default_rng(2)
+    w0 = (wrng.integers(1, 8, g.m).astype(np.int32)
+          if args.weighted else None)
+    ins_w = ([wrng.integers(1, 8, len(ev.edges)).astype(np.int32)
+              for ev in events] if args.weighted else None)
+    state_path = args.ckpt
+    meta_path = args.ckpt + ".meta"
+
+    start_batch = 0
+    if os.path.exists(state_path) and os.path.exists(meta_path):
+        m = CoreMaintainer.load(state_path, device=args.device,
+                                engine=args.engine, weighted=args.weighted)
+        start_batch = int(open(meta_path).read().strip()) + 1
+        print(f"[resume] restored checkpoint, continuing at batch "
+              f"{start_batch}")
+    else:
+        m = CoreMaintainer.from_graph(
+            g, capacity=8 * args.m, engine=args.engine,
+            weighted=args.weighted, weights=w0, device=args.device,
+        )
+    print(f"[device] {m.device} engine={m.engine} "
+          f"kernel_backend={m.kernel_backend}")
+
+    def sync():
+        if m.device.type == "cuda":
+            import torch
+            torch.cuda.synchronize()
+
+    t_all = time.perf_counter()
+    edges_done = 0
+    for i in range(start_batch, len(events)):
+        ev = events[i]
+        sync()
+        t0 = time.perf_counter()
+        if ev.kind == "mixed":
+            st = m.apply_batch(
+                insert_edges=ev.edges, remove_edges=ev.removals,
+                insert_weights=ins_w[i] if args.weighted else None,
+            )
+        elif ev.kind == "insert":
+            st = m.insert_edges(
+                ev.edges, weights=ins_w[i] if args.weighted else None)
+        else:
+            st = m.remove_edges(ev.edges)
+        sync()
+        dt = time.perf_counter() - t0
+        if ev.kind == "mixed":
+            extra = (f"+{int(st.n_inserted)}/-{int(st.n_removed)} "
+                     f"|V*|={int(st.n_promoted) + int(st.n_dropped)} "
+                     f"rounds={int(st.insert_rounds) + int(st.remove_rounds)} "
+                     f"recycled={int(st.n_recycled)} "
+                     f"hwm={int(st.high_water)}")
+        elif ev.kind == "insert":
+            extra = f"|V*|={int(st.n_promoted)} rounds={int(st.rounds)}"
+        else:
+            extra = f"|V*|={int(st.n_dropped)} rounds={int(st.rounds)}"
+        edges_done += ev.n_edits
+        print(f"[batch {i:03d}] {ev.kind:6s} {ev.n_edits} edges "
+              f"in {dt*1e3:7.1f} ms  {extra}")
+        if i % args.ckpt_every == 0:
+            tmp = state_path + ".tmp.npz"
+            m.save(tmp)
+            os.replace(tmp, state_path)  # atomic commit
+            with open(meta_path + ".tmp", "w") as fh:
+                fh.write(str(i))
+            os.replace(meta_path + ".tmp", meta_path)
+        if args.simulate_crash and i == len(events) // 2:
+            print("[crash] simulating preemption — restart me to resume")
+            raise SystemExit(17)
+
+    total = time.perf_counter() - t_all
+    print(f"\nprocessed {edges_done} edge events in {total:.2f}s "
+          f"({edges_done/max(total, 1e-9):.0f} edges/s)")
+
+    if args.verify:
+        # rebuild the final graph on the host and compare with the oracle
+        items = sorted(m.edge_slot.items())
+        live = np.asarray(
+            [[a, b] for (a, b), _ in items], dtype=np.int64
+        ).reshape(-1, 2)
+        if args.weighted:
+            wcol = m.w.cpu().numpy()
+            lw = np.asarray([wcol[s] for _, s in items], dtype=np.int64)
+            expect = weighted_core_oracle(m.n, live, lw)
+            assert (m.cores() == expect).all()
+            print("final cores verified against the weighted peeling "
+                  "oracle ✓")
+        else:
+            expect = bz_from_csr(build_csr(m.n, live))
+            assert (m.cores() == expect).all()
+            print("final cores verified against BZ ✓")
+    # clean checkpoint on success
+    for p in (state_path, meta_path):
+        if os.path.exists(p):
+            os.remove(p)
+
+
+if __name__ == "__main__":
+    main()

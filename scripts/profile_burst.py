@@ -5,19 +5,27 @@ the size ``chip_smoke.py`` drives it (``rmat(21, 16_000_000, seed=0)``,
 removed and then re-inserted (which restores the edge set and the
 cores).
 
-    python3 scripts/profile_burst.py              # needs one CUDA card and nvcc
-    python3 scripts/profile_burst.py --weighted   # the weighted engine
+    python3 scripts/profile_burst.py                # one CUDA card, nvcc
+    python3 scripts/profile_burst.py --weighted     # the weighted engine
+    python3 scripts/profile_burst.py --engine host  # the host engine
 
 ``--weighted`` builds weighted maintainers instead
 (``from_graph(weighted=True)``, weights drawn uniformly from 1-5 with
 seed 1, as ``chip_smoke.py`` phase 5 does) and re-inserts the burst with
 its own weights.
 
+``--engine host`` builds an ``engine="host"`` maintainer from the same
+state (its ``edge_slot`` dict built and timed before any pair), takes
+turns with the kernel maintainer (host, cuda, cuda, host) and profiles
+the host maintainer's pair: the seed two-call path, whose fixpoints run
+plain PyTorch on the card, so its edge-pass share is 0.
+
 1. The burst pair on two maintainers built from one state, one with the
    hand-written kernels (``kernel_backend="cuda"``) and one with the
    plain ``"torch"`` backend, in turns (torch, cuda, cuda, torch); each
    pair's removal and re-insertion wall times, ending in a device sync.
-2. One more pair on the kernel maintainer under ``torch.profiler``:
+2. One more pair on the kernel maintainer (``--engine host``: the host
+   maintainer) under ``torch.profiler``:
    wall time, device busy time, idle share, and the device time of the
    PyTorch ops and of the kernels that take most of it; the device time
    of the kernels launched inside ``order.place_block`` (each call
@@ -54,7 +62,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--weighted", action="store_true",
                     help="profile the weighted engine (weights 1-5)")
+    ap.add_argument("--engine", default="unified",
+                    choices=("unified", "host"),
+                    help="host: profile the seed two-call path")
     args = ap.parse_args()
+    if args.weighted and args.engine == "host":
+        ap.error("--weighted needs the unified engine")
     import torch
     if not torch.cuda.is_available():
         print("profile_burst: no CUDA device", file=sys.stderr)
@@ -91,6 +104,15 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"set-up: n={g.n} m={g.m} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    turns, prof_m = (plain, kern, kern, plain), kern
+    if args.engine == "host":
+        host = CoreMaintainer.from_state(kern.state(), device="cuda",
+                                         engine="host")
+        t0 = time.perf_counter()
+        n_slots = len(host.edge_slot)
+        print(f"host engine: edge_slot dict of {n_slots} entries built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        turns, prof_m = (host, kern, kern, host), host
 
     live = torch.nonzero(kern.valid).flatten()
     pick = torch.from_numpy(np.random.default_rng(1).choice(
@@ -113,9 +135,10 @@ def main() -> int:
             raise RuntimeError("the burst pair did not restore the cores")
         return times
 
-    for m in (plain, kern, kern, plain):
+    for m in turns:
         rm_s, ins_s = burst_pair(m)
-        print(f"burst pair kernel_backend={m.kernel_backend}"
+        print(f"burst pair engine={m.engine} "
+              f"kernel_backend={m.kernel_backend}"
               f"{' weighted' if args.weighted else ''}: "
               f"remove_s={rm_s:.4f} insert_s={ins_s:.4f}", flush=True)
 
@@ -131,7 +154,7 @@ def main() -> int:
         try:
             t0 = time.perf_counter()
             K.reset_launches()
-            burst_pair(kern)
+            burst_pair(prof_m)
             wall = time.perf_counter() - t0
         finally:
             core_insert.place_block = core_remove.place_block = place_block
@@ -146,7 +169,9 @@ def main() -> int:
     kernels = [e for e in timed if e.device_type == DeviceType.CUDA]
     ops = [e for e in timed if e.device_type != DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profile (cuda burst pair under the profiler): wall_s={wall:.4f} "
+    print(f"profile (engine={prof_m.engine} "
+          f"kernel_backend={prof_m.kernel_backend} burst pair under the "
+          f"profiler): wall_s={wall:.4f} "
           f"device_busy_s={busy_us / 1e6:.4f} "
           f"idle_share={1 - busy_us / 1e6 / wall:.3f}")
     # the span's host event carries the device time of the kernels

@@ -1,10 +1,21 @@
 """CoreMaintainer — the public interface to parallel order-based core
 maintenance, on PyTorch.
 
-The port of the reference's ``core/api.py`` for ``engine="unified"``:
-every batch (mixed insertions + removals) runs as one call of
-``engine.apply_batch`` on the maintainer's device, with the slot table
-updated in place. The host keeps
+The port of the reference's ``core/api.py`` for one device, with both of
+its single-device engines:
+
+* ``engine="unified"`` (the default): every batch (mixed insertions +
+  removals) runs as one call of ``engine.apply_batch`` on the
+  maintainer's device, with the slot table updated in place;
+* ``engine="host"``: the reference's seed two-call path. The host
+  dedups each edit list against the ``edge_slot`` dict, then
+  ``remove.remove_batch`` and ``insert.insert_batch`` run on the device
+  in plain PyTorch (the reference runs this path in lax only, so
+  ``kernel_backend="cuda"`` and ``weighted=True`` raise with it).
+  ``n_edges`` is the bump pointer, tombstones are reclaimed by
+  ``_compact`` and the table grows by ``_grow``.
+
+Under ``engine="unified"`` the host keeps
 
   * a lazily-built ``edge -> slot`` mirror for queries (``edge_slot``;
     dropped after each batch, built on first access), and
@@ -19,7 +30,8 @@ Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no CUDA device is present; tests pass ``device="cpu"``.
 ``kernel_backend`` is ``"torch"`` or ``"cuda"`` (the counterparts of the
 reference's ``"lax"`` and ``"pallas"``) and defaults to ``"cuda"`` on a
-CUDA device, ``"torch"`` on the CPU; ``"cuda"`` on a CPU device raises.
+CUDA device, ``"torch"`` on the CPU and under ``engine="host"``;
+``"cuda"`` on a CPU device raises.
 
 ``weighted=True`` (weighted coreness, Zhou et al.) adds a per-slot int32
 weight column ``w``: ``from_graph(weights=)`` takes the initial
@@ -29,8 +41,8 @@ inserts, and both maintenance phases run the weighted h-index fixpoint
 
 Checkpoints use the reference's ``np.savez_compressed`` payload (n,
 capacity, src, dst, valid, n_edges, core, label, and ``w`` when
-weighted), so they load in both directions. The host engine is in
-ROADMAP Queue 1 (items 1-6, the rest) and the sharded engines item 8.
+weighted), so they load in both directions and across both engines.
+The sharded engines are ROADMAP Queue 1 item 8.
 
 Edge endpoints are validated on every edit path: out-of-range vertices
 raise ``ValueError`` by default, or are dropped under ``validate=False``.
@@ -44,13 +56,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..graph.csr import CSRGraph
+from ..graph.csr import CSRGraph, build_csr
 from .decomposition import peel_decomposition, rank_to_labels
 from .engine import BatchStats, apply_batch, apply_batch_weighted
 from .graph_ops import KERNEL_BACKENDS
-from .insert import InsertStats
+from .insert import InsertStats, insert_batch
 from .oracle import bz_core_decomposition
-from .remove import RemoveStats, weighted_core_fixpoint_pass
+from .order import needs_renumber, renumber
+from .remove import (RemoveStats, remove_batch,
+                     weighted_core_fixpoint_pass)
 
 _STATE_KEYS = ("n", "capacity", "src", "dst", "valid", "n_edges", "core",
                "label")
@@ -85,11 +99,12 @@ def _as_edge_array(edges) -> np.ndarray:
 
 
 def resolve_backend(kernel_backend: Optional[str],
-                    dev: torch.device) -> str:
-    """``None`` means ``"cuda"`` on a card and ``"torch"`` on the CPU;
-    ``"cuda"`` on a CPU device raises."""
+                    dev: torch.device, engine: str = "unified") -> str:
+    """``None`` means ``"cuda"`` on a card and ``"torch"`` on the CPU or
+    under ``engine="host"``; ``"cuda"`` on a CPU device raises."""
     if kernel_backend is None:
-        kernel_backend = "cuda" if dev.type == "cuda" else "torch"
+        kernel_backend = ("cuda" if dev.type == "cuda" and engine != "host"
+                          else "torch")
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(
             f"unknown kernel_backend {kernel_backend!r} "
@@ -103,19 +118,29 @@ def resolve_backend(kernel_backend: Optional[str],
     return kernel_backend
 
 
-def _check_engine(engine: str) -> None:
-    if engine == "host":
-        raise NotImplementedError(
-            "engine='host' is in ROADMAP Queue 1, items 1-6, the rest; "
-            "the port runs engine='unified'"
-        )
+def _check_config(engine: str, kernel_backend: Optional[str],
+                  weighted: bool) -> None:
+    """The engine, and the reference's refusals of the host engine, before
+    any device check (so the message is the same on every device)."""
     if engine == "sharded":
         raise NotImplementedError(
             "engine='sharded' is ROADMAP Queue 1 item 8; the port runs "
-            "engine='unified'"
+            "engine='unified' and engine='host'"
         )
-    if engine != "unified":
+    if engine not in ("unified", "host"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "host" and kernel_backend == "cuda":
+        raise ValueError(
+            "kernel_backend='cuda' needs a device engine ('unified') — "
+            "the host path runs the seed two-call path in plain PyTorch "
+            "and would silently ignore it"
+        )
+    if engine == "host" and weighted:
+        raise ValueError(
+            "weighted=True needs a device engine ('unified') — the seed "
+            "host path runs the unit-count order-maintenance fixpoints "
+            "and has no weight column"
+        )
 
 
 @dataclasses.dataclass
@@ -127,7 +152,9 @@ class CoreMaintainer:
     src: torch.Tensor      # int32 [capacity]
     dst: torch.Tensor      # int32 [capacity]
     valid: torch.Tensor    # bool [capacity]
-    n_edges: torch.Tensor  # int32 scalar, live edge count
+    # int32 scalar: the live edge count (unified), the bump pointer =
+    # slot high-water mark (host)
+    n_edges: torch.Tensor
     core: torch.Tensor     # int32 [n]
     label: torch.Tensor    # int64 [n]
     n_levels: int
@@ -142,12 +169,14 @@ class CoreMaintainer:
     slot_cache: Optional[Dict[Tuple[int, int], int]] = None
     live_ub: int = -1  # upper bound on live edges (-1: from valid)
     hwm_ub: int = -1   # upper bound on the slot high-water mark
+    host_renumbered: bool = False  # the last host-path call renumbered
     _last_window: int = dataclasses.field(default=0, repr=False)
 
     def __post_init__(self) -> None:
-        _check_engine(self.engine)
+        _check_config(self.engine, self.kernel_backend, self.weighted)
         dev = self.src.device
-        self.kernel_backend = resolve_backend(self.kernel_backend, dev)
+        self.kernel_backend = resolve_backend(self.kernel_backend, dev,
+                                              self.engine)
         if self.weighted:
             if self.w is None:
                 # unit weights: the weighted engine then computes exactly
@@ -170,6 +199,11 @@ class CoreMaintainer:
             live = torch.nonzero(self.valid).flatten()
             self.live_ub = int(live.shape[0])
             self.hwm_ub = int(live[-1]) + 1 if live.numel() else 0
+        if self.engine == "host" and int(self.n_edges) < self.hwm_ub:
+            # the host path bump-allocates from n_edges: it must cover
+            # the high-water mark (unified saves store the live count)
+            self.n_edges = torch.tensor(self.hwm_ub, dtype=torch.int32,
+                                        device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -202,7 +236,7 @@ class CoreMaintainer:
         the maintainer's device and kernel backend (the integer result
         cannot depend on the backend), and the initial labels are the
         ``(core, vertex id)`` lexicographic ranks."""
-        _check_engine(engine)
+        _check_config(engine, kernel_backend, weighted)
         dev = resolve_device(device)
         edges = g.edge_array()
         m = edges.shape[0]
@@ -281,8 +315,9 @@ class CoreMaintainer:
         n_edges, core, label, and ``w`` of a weighted maintainer). The
         unweighted engine ignores a weight column, as the reference's
         unweighted ``load`` does; ``weighted=True`` without one adopts
-        unit weights."""
-        _check_engine(engine)
+        unit weights. Under ``engine="host"`` the saved ``n_edges`` is
+        raised to the slot high-water mark (the bump pointer)."""
+        _check_config(engine, kernel_backend, weighted)
         dev = resolve_device(device)
         missing = [k for k in _STATE_KEYS if k not in arrays]
         if missing:
@@ -383,7 +418,11 @@ class CoreMaintainer:
     def apply_batch(self, insert_edges=None, remove_edges=None,
                     insert_weights=None) -> BatchStats:
         """Apply one mixed batch (removals first, then insertions) on the
-        device. Both lists are validated before any state changes.
+        device. Both lists are validated before any state changes, so a
+        rejected batch is rejected whole (the host path commits its
+        removals before it looks at the insert list). Under
+        ``engine="host"`` the batch runs the seed two-call path and its
+        statistics are composed from both calls.
 
         ``insert_weights`` (weighted maintainers only) aligns row for row
         with ``insert_edges``; omitted means weight 1 per edge. An
@@ -404,6 +443,8 @@ class CoreMaintainer:
         else:
             ins = self._validated(insert_edges, "insert")
         rm = self._validated(remove_edges, "remove")
+        if self.engine == "host":
+            return self._apply_batch_host(ins, rm)
         dev = self.device
         b_ins = ins.shape[0]
         if b_ins == 0 and rm.shape[0] == 0:
@@ -465,8 +506,49 @@ class CoreMaintainer:
         self.last_batch_stats = stats
         return stats
 
+    def _apply_batch_host(self, ins: np.ndarray,
+                          rm: np.ndarray) -> BatchStats:
+        """``apply_batch`` under ``engine="host"``: removals, then
+        insertions, each through its own call, with the reference's
+        twelve statistics (no recycling, no exchange; the high-water
+        mark is the bump pointer)."""
+        n_live0 = len(self.edge_slot)
+        rm_st = self._remove_edges_host(rm)
+        n_live1 = len(self.edge_slot)
+        renumbered = self.host_renumbered
+        in_st = self._insert_edges_host(ins)
+        renumbered = renumbered or self.host_renumbered
+        dev = self.device
+
+        def i32(x):
+            return torch.tensor(x, dtype=torch.int32, device=dev)
+
+        stats = BatchStats(
+            n_inserted=i32(len(self.edge_slot) - n_live1),
+            n_removed=i32(n_live0 - n_live1),
+            insert_rounds=in_st.rounds,
+            n_promoted=in_st.n_promoted,
+            v_plus=in_st.v_plus,
+            remove_rounds=rm_st.rounds,
+            n_dropped=rm_st.n_dropped,
+            renumbered=torch.tensor(renumbered, device=dev),
+            n_recycled=i32(0),  # the host path reclaims by _compact
+            high_water=self.n_edges,  # the bump pointer
+            max_frontier=torch.maximum(in_st.max_frontier,
+                                       rm_st.max_frontier),
+            n_overflow=i32(0),  # one device: no exchange to overflow
+        )
+        self.last_batch_stats = stats
+        return stats
+
     def insert_edges(self, edges: np.ndarray,
                      weights: Optional[np.ndarray] = None) -> InsertStats:
+        if self.engine == "host":
+            if weights is not None:
+                raise ValueError(
+                    "weights= needs weighted=True (a device engine)"
+                )
+            return self._insert_edges_host(edges)
         st = self.apply_batch(insert_edges=edges, insert_weights=weights)
         self.last_insert_stats = InsertStats(
             rounds=st.insert_rounds,
@@ -477,12 +559,98 @@ class CoreMaintainer:
         return self.last_insert_stats
 
     def remove_edges(self, edges: np.ndarray) -> RemoveStats:
+        if self.engine == "host":
+            return self._remove_edges_host(edges)
         st = self.apply_batch(remove_edges=edges)
         self.last_remove_stats = RemoveStats(
             rounds=st.remove_rounds, n_dropped=st.n_dropped,
             max_frontier=st.max_frontier,
         )
         return self.last_remove_stats
+
+    # -- the seed two-call path (engine="host") ---------------------------
+    def _zeros(self, k: int) -> tuple:
+        z = torch.zeros((), dtype=torch.int32, device=self.device)
+        return (z,) * k
+
+    def _insert_edges_host(self, edges) -> InsertStats:
+        """Dedup on the host against the ``edge_slot`` dict (self-loops,
+        in-batch repeats and live edges dropped, the first row kept),
+        make room (``_compact``, then ``_grow``), record the new slots
+        in the dict, then ``insert.insert_batch`` on the device and the
+        renumber gate."""
+        self.host_renumbered = False
+        edges = self._validated(edges, "insert")
+        lo = np.minimum(edges[:, 0], edges[:, 1])
+        hi = np.maximum(edges[:, 0], edges[:, 1])
+        keep, seen = [], set()
+        slot_table = self.edge_slot
+        for key in zip(lo.tolist(), hi.tolist()):
+            if key[0] == key[1] or key in seen or key in slot_table:
+                continue
+            seen.add(key)
+            keep.append(key)
+        if not keep:
+            self.last_insert_stats = None
+            return InsertStats(*self._zeros(4))
+        arr = np.asarray(keep, dtype=np.int32)
+        if int(self.n_edges) + arr.shape[0] + 1 >= self.capacity:
+            self._compact()  # replaces the slot dict: re-read below
+            if int(self.n_edges) + arr.shape[0] + 1 >= self.capacity:
+                self._grow(arr.shape[0])
+        base = int(self.n_edges)
+        slot_table = self.edge_slot
+        for i, key in enumerate(keep):
+            slot_table[key] = base + i
+        new_ok = np.zeros(_pow2_roundup(arr.shape[0]), dtype=bool)
+        new_ok[: arr.shape[0]] = True
+        lanes = [torch.from_numpy(x).to(self.device)
+                 for x in (_pad_pow2(arr[:, 0], 0), _pad_pow2(arr[:, 1], 0),
+                           new_ok)]
+        (self.src, self.dst, self.valid, self.n_edges, self.core,
+         self.label, stats) = insert_batch(
+            self.src, self.dst, self.valid, self.core, self.label, *lanes,
+            self.n_edges, self.n, self.n_levels,
+        )
+        # on the host path n_edges IS the bump pointer (slot high-water)
+        self.hwm_ub = int(self.n_edges)
+        self.live_ub = self.hwm_ub
+        self.host_renumbered = self._maybe_renumber()
+        self.last_insert_stats = stats
+        return stats
+
+    def _remove_edges_host(self, edges) -> RemoveStats:
+        """Pop each live edge's slot from the ``edge_slot`` dict, then
+        ``remove.remove_batch`` on the device (slots padded with -1) and
+        the renumber gate."""
+        self.host_renumbered = False
+        edges = self._validated(edges, "remove")
+        slots = []
+        slot_table = self.edge_slot
+        for a, b in edges.tolist():
+            slot = slot_table.pop((min(a, b), max(a, b)), None)
+            if slot is not None:
+                slots.append(slot)
+        if not slots:
+            self.last_remove_stats = None
+            return RemoveStats(*self._zeros(3))
+        padded = _pad_pow2(np.asarray(slots, dtype=np.int32), -1)
+        self.valid, self.core, self.label, stats = remove_batch(
+            self.src, self.dst, self.valid, self.core, self.label,
+            torch.from_numpy(padded).to(self.device), self.n,
+            self.n_levels,
+        )
+        self.host_renumbered = self._maybe_renumber()
+        self.last_remove_stats = stats
+        return stats
+
+    def _maybe_renumber(self) -> bool:
+        """The host path's renumber gate, after each call: relabel iff
+        the label space is out of headroom."""
+        if bool(needs_renumber(self.label)):
+            self.label = renumber(self.core, self.label)
+            return True
+        return False
 
     # -- capacity planning ----------------------------------------------------
     def _window(self, b_ins: int) -> int:
@@ -538,8 +706,17 @@ class CoreMaintainer:
         self._last_window = 0  # fresh layout: let the next batch re-bucket
         self.slot_cache = None
 
+    def _compact(self) -> None:
+        """Drop tombstoned slots: the host path's reclaim (the unified
+        engine recycles them in its batch program)."""
+        self._defrag_to(self.capacity)
+
+    def _grow(self, need: int) -> None:
+        self._grow_to(max(self.capacity * 2, self.capacity + 2 * need + 16))
+
     def _grow_to(self, new_cap: int) -> None:
-        """Extend the slot table with dead headroom."""
+        """Extend the slot table with dead headroom (the host path's
+        growth step)."""
         pad = new_cap - self.capacity
         if pad <= 0:
             return
@@ -585,3 +762,9 @@ class CoreMaintainer:
         return cls.from_state(arrays, device=device,
                               kernel_backend=kernel_backend, engine=engine,
                               weighted=weighted, validate=validate)
+
+
+def maintainer_from_edges(n: int, edges, **kw) -> CoreMaintainer:
+    """A maintainer of the graph on ``n`` vertices with these edges
+    (``build_csr`` drops self-loops and duplicates)."""
+    return CoreMaintainer.from_graph(build_csr(n, edges), **kw)

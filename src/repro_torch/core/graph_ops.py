@@ -10,7 +10,9 @@ This module is the KERNEL DISPATCH POINT: the round statistics accept
 ``"lax" | "pallas"``. The torch path gathers endpoint state and scatters
 with an ``index_add_`` pair (``_seg2``), the port of the lax path. The
 cuda path runs the hand-written kernels of ``kernels/coremaint.py`` and
-produces the same integer sums bit for bit.
+produces the same integer sums bit for bit. ``count_gt``,
+``count_same_level_after``, ``count_same_level_before_in`` and
+``expand_forward`` have no kernel backend, as in the reference.
 """
 from __future__ import annotations
 
@@ -82,6 +84,12 @@ def count_ge(src, dst, valid, vals, n: int, layout=None,
                  layout)
 
 
+def count_gt(src, dst, valid, vals, n: int, layout=None) -> torch.Tensor:
+    """Per-vertex count of neighbors w with vals[w] > vals[v]."""
+    cs, cd = vals[src], vals[dst]
+    return _seg2(valid & (cd > cs), valid & (cs > cd), src, dst, n, layout)
+
+
 def hi_dout_indicators(core, label, u, v, ok):
     """Per-edge indicator columns of the promotion statistics: for each
     (u, v) edge masked by ``ok``, whether it contributes to hi(u),
@@ -130,6 +138,25 @@ def mcd_hi_dout(src, dst, valid, core, label, n: int, layout=None,
                 torch.stack([valid & (cs >= cd), hi_d, do_d], dim=-1),
                 src, dst, n, layout)
     return out[:, 0], out[:, 1], out[:, 2]
+
+
+def count_same_level_after(src, dst, valid, core, label, n: int,
+                           layout=None) -> torch.Tensor:
+    """dout within level (part of Def 3.7): neighbors with equal core and
+    a larger order label (same-level k-order successors)."""
+    same = valid & (core[src] == core[dst])
+    return _seg2(same & (label[dst] > label[src]),
+                 same & (label[src] > label[dst]), src, dst, n, layout)
+
+
+def count_same_level_before_in(src, dst, valid, core, label, mask, n: int,
+                               layout=None) -> torch.Tensor:
+    """din* (Def 3.6): same-level order-predecessors that are in
+    ``mask``."""
+    same = valid & (core[src] == core[dst])
+    return _seg2(same & (label[dst] < label[src]) & mask[dst],
+                 same & (label[src] < label[dst]) & mask[src],
+                 src, dst, n, layout)
 
 
 def count_same_level_in(src, dst, valid, core, mask, n: int, layout=None,
@@ -199,3 +226,13 @@ def weighted_h_index(src, dst, valid, w, core, upper, n: int, layout=None,
         ok = s >= mid
         lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid - 1)
     return lo
+
+
+def expand_forward(src, dst, valid, core, label, frontier, n: int,
+                   layout=None) -> torch.Tensor:
+    """One wave of the Forward phase: the same-level k-order successors
+    of ``frontier`` vertices, as a bool [n] mask."""
+    same = valid & (core[src] == core[dst])
+    hit_dst = same & frontier[src] & (label[src] < label[dst])
+    hit_src = same & frontier[dst] & (label[dst] < label[src])
+    return _seg2(hit_src, hit_dst, src, dst, n, layout) > 0

@@ -18,9 +18,10 @@ of the reference's ``lax.while_loop``s is a Python loop here with one
 host sync per iteration (its condition); round counts match exactly.
 The weighted engine's promotion phase (``weighted_promotion_fixpoint``)
 has no order machinery: it is the removal phase's weighted h-index
-fixpoint started from ``core + total batch weight``. The host engine's
-``write_edge_slots`` / ``insert_batch`` are in ROADMAP Queue 1, items
-1-6, the rest.
+fixpoint started from ``core + total batch weight``. The host engine
+(``engine="host"``) inserts through ``write_edge_slots`` (bump
+allocation) and ``insert_batch``, in plain PyTorch as the reference's
+host path runs lax.
 """
 from __future__ import annotations
 
@@ -80,6 +81,54 @@ def freelist_alloc(valid: torch.Tensor, iok: torch.Tensor,
     lpos = torch.where(iok, slot_of_rank[rank.clamp(min=0)],
                        torch.full_like(rank, capacity))
     return lpos, iok
+
+
+def write_edge_slots(src, dst, valid, n_edges, new_src, new_dst, new_ok
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Bump slot allocation — the seed path behind ``engine="host"``,
+    where ``n_edges`` is the bump pointer (slot high-water mark) and
+    tombstones are reclaimed only by the host's ``_compact``. Lane ``b``
+    of the kept inserts takes slot ``n_edges + cumsum(new_ok)[b] - 1``.
+
+    The reference parks its padding lanes on the last slot and rewrites
+    that slot's own values; only the ``new_ok`` lanes are written here,
+    which leaves the same table. Callers guarantee that
+    ``n_edges + batch + 1 <= capacity``. Returns the updated ``(src,
+    dst, valid, n_edges)``.
+    """
+    slot = n_edges + torch.cumsum(new_ok, 0, dtype=torch.int32) - 1
+    at = slot[new_ok].long()
+    src = src.index_put((at,), new_src[new_ok].to(src.dtype))
+    dst = dst.index_put((at,), new_dst[new_ok].to(dst.dtype))
+    valid = valid.index_put((at,), torch.ones_like(at, dtype=torch.bool))
+    return src, dst, valid, n_edges + new_ok.sum(dtype=torch.int32)
+
+
+def insert_batch(src, dst, valid, core, label, new_src, new_dst, new_ok,
+                 n_edges, n: int, n_levels: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Insert ``(new_src, new_dst)`` (masked by ``new_ok``) and restore
+    core numbers + k-order labels — the host engine's insertion, in
+    plain PyTorch (the reference runs it in lax only).
+
+    Returns ``(src, dst, valid, n_edges, core, label, stats)``.
+    """
+    src, dst, valid, n_edges = write_edge_slots(
+        src, dst, valid, n_edges, new_src, new_dst, new_ok
+    )
+    core0 = core
+    hi, dout_same = G.hi_and_dout_same(src, dst, valid, core, label, n)
+    core, label, rounds, v_plus, fmax = promotion_fixpoint(
+        src, dst, valid, core, label, new_src, new_dst, new_ok,
+        hi, dout_same, n, n_levels, kernel_backend="torch",
+    )
+    stats = InsertStats(
+        rounds=rounds,
+        n_promoted=(core != core0).sum(dtype=torch.int32),
+        v_plus=v_plus.sum(dtype=torch.int32),
+        max_frontier=fmax,
+    )
+    return src, dst, valid, n_edges, core, label, stats
 
 
 def promotion_fixpoint(

@@ -11,7 +11,8 @@ Every round handles all affected levels of all removed edges at once;
 this round's droppers are placed at the tail of their new level.
 
 The weighted engine runs ``weighted_core_fixpoint_pass`` instead: the
-same decrease-only shape with the weighted h-index in place of mcd.
+same decrease-only shape with the weighted h-index in place of mcd. The
+host engine (``engine="host"``) removes through ``remove_batch``.
 """
 from __future__ import annotations
 
@@ -88,6 +89,33 @@ def removal_fixpoint(
         core = new_core
     rounds = torch.tensor(rounds, dtype=torch.int32, device=core.device)
     return core, label, rounds, hi, dout_same, fmax
+
+
+def remove_batch(src, dst, valid, core, label, slots, n: int,
+                 n_levels: int) -> Tuple[torch.Tensor, ...]:
+    """Remove the edges in ``slots`` (int32; ``-1`` entries are padding)
+    and restore core numbers + k-order labels — the host engine's
+    removal, in plain PyTorch (the reference runs it in lax only).
+
+    Returns ``(valid, core, label, stats)``.
+    """
+    ok = slots >= 0
+    safe = torch.where(ok, slots, torch.zeros_like(slots)).long()
+    # a commutative scatter: padding (ok=False) adds 0, so it stays a
+    # no-op even where it collides with a real removal of slot 0
+    rm = torch.zeros(valid.shape[0], dtype=torch.int32, device=valid.device)
+    rm.index_add_(0, safe, ok.to(torch.int32))
+    valid = valid & (rm == 0)
+    core0 = core
+    core, label, rounds, _, _, fmax = removal_fixpoint(
+        src, dst, valid, core, label, n, n_levels, share_stats=False,
+        kernel_backend="torch",
+    )
+    stats = RemoveStats(
+        rounds=rounds, n_dropped=(core != core0).sum(dtype=torch.int32),
+        max_frontier=fmax,
+    )
+    return valid, core, label, stats
 
 
 def weighted_core_fixpoint_pass(

@@ -1,12 +1,14 @@
-"""Host-side graph container: numpy CSR for oracles, generators and
-stream replay.
+"""Graph containers: numpy CSR for oracles, generators and stream
+replay, and the device-side COO edge slots.
 
-The numpy part of the reference's ``graph/csr.py`` (``CSRGraph``,
-``build_csr``, ``add_edges_csr``, ``remove_edges_csr``, and the padded
+The port of the reference's ``graph/csr.py``: ``CSRGraph``,
+``build_csr``, ``add_edges_csr``, ``remove_edges_csr`` and the padded
 neighbour matrix ``ELLGraph`` / ``ell_from_csr`` that the ELL kernels of
-``kernels/segment_ell.py`` read), copied so the port never imports the
-JAX package. The device-side dynamic edge slots live in
-``core.api.CoreMaintainer`` as torch tensors.
+``kernels/segment_ell.py`` read, copied in numpy so the port never
+imports the JAX package; and ``COOEdges`` / ``coo_from_csr``, the
+fixed-capacity edge slots as torch tensors (a plain dataclass: torch
+needs no pytree registration). ``core.api.CoreMaintainer`` keeps its own
+slot table.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +96,56 @@ def add_edges_csr(g: CSRGraph, edges: np.ndarray) -> CSRGraph:
     cur = g.edge_array()
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     return build_csr(g.n, np.concatenate([cur, edges], axis=0))
+
+
+# ---------------------------------------------------------------------------
+# COO dynamic edge slots (device side)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class COOEdges:
+    """Fixed-capacity undirected edge slots.
+
+    Attributes
+    ----------
+    n:        number of vertices (static).
+    src, dst: int32 [capacity]; meaningful where ``valid``.
+    valid:    bool [capacity].
+    n_edges:  int32 scalar — number of slots ever written (free slots are
+              ``[n_edges:]``; removed slots are tombstoned, compaction is a
+              host-side maintenance action).
+    """
+
+    n: int
+    src: torch.Tensor
+    dst: torch.Tensor
+    valid: torch.Tensor
+    n_edges: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return int(self.src.shape[0])
+
+
+def coo_from_csr(g: CSRGraph, capacity: Optional[int] = None,
+                 device=None) -> COOEdges:
+    """The graph's edges (``g.edge_array()``, src < dst) in the first
+    ``m`` slots of a table of ``capacity`` slots (default ``2 m``, at
+    least 1), on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    edges = g.edge_array()
+    m = edges.shape[0]
+    capacity = capacity or max(1, int(m * 2))
+    if capacity < m:
+        raise ValueError(f"capacity {capacity} < m {m}")
+    src = torch.zeros(capacity, dtype=torch.int32)
+    dst = torch.zeros(capacity, dtype=torch.int32)
+    valid = torch.zeros(capacity, dtype=torch.bool)
+    src[:m] = torch.from_numpy(edges[:, 0].astype(np.int32))
+    dst[:m] = torch.from_numpy(edges[:, 1].astype(np.int32))
+    valid[:m] = True
+    return COOEdges(n=g.n, src=src.to(dev), dst=dst.to(dev),
+                    valid=valid.to(dev),
+                    n_edges=torch.tensor(m, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------

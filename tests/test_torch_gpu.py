@@ -3,8 +3,9 @@ version on the same inputs (tolerance 0 for integer counts and weight
 sums and for ``ell_stat``; the float kernels' tolerances are stated at
 each test), the unified maintainer, unweighted and weighted, with
 ``kernel_backend="cuda"`` against ``kernel_backend="torch"`` and the
-BZ / weighted peeling oracle, batch by batch, and DeepFM serving with
-the FM kernel against its plain branch.
+BZ / weighted peeling oracle, batch by batch, the host engine on the
+card against the unified engine and against itself on the CPU, and
+DeepFM serving with the FM kernel against its plain branch.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA
 device; the module imports neither jax nor the reference package, so it
@@ -159,6 +160,43 @@ def test_maintainer_cuda_matches_torch_backend_and_bz(graph, stream):
     for k in ("fused_removal_round", "fused_promotion_stats",
               "coo_stat[din]", "coo_stat[same_in]"):
         assert K.LAUNCHES[k] > 0, k
+
+
+@pytest.mark.parametrize("graph", ["er", "rmat"])
+@pytest.mark.parametrize("stream", ["mixed", "churn"])
+def test_host_engine_on_card_matches_unified_and_cpu(graph, stream):
+    """``engine="host"`` on the card: cores and labels equal to the
+    unified engine's with the kernels, the whole state (slot table, bump
+    pointer, capacity, ``edge_slot``, 12 statistics) equal to the host
+    engine on the CPU, the cores to BZ, and no kernel launched. The
+    table starts with 40 free slots, so the host path compacts."""
+    _card()
+    g = (erdos_renyi(500, 2500, seed=3) if graph == "er"
+         else rmat(9, 3000, seed=3))
+    events = (mixed_stream(g, 5, 80, seed=4) if stream == "mixed"
+              else churn_stream(g, 5, 80, seed=4))
+    h = CoreMaintainer.from_graph(g, engine="host", capacity=g.m + 40)
+    c = CoreMaintainer.from_graph(g, engine="host", capacity=g.m + 40,
+                                  device="cpu")
+    u = CoreMaintainer.from_graph(g)
+    assert (h.device.type, h.kernel_backend) == ("cuda", "torch")
+    with pytest.raises(ValueError, match="needs a device engine"):
+        CoreMaintainer.from_graph(g, engine="host", kernel_backend="cuda")
+    for ev in events:
+        u.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals)
+        before = dict(K.LAUNCHES)
+        sh = h.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals)
+        assert K.LAUNCHES == before
+        sc = c.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals)
+        for f in sh._fields:
+            assert int(getattr(sh, f)) == int(getattr(sc, f)), f
+        np.testing.assert_array_equal(h.cores(), u.cores())
+        np.testing.assert_array_equal(h.labels(), u.labels())
+        for name in ("src", "dst", "valid", "core", "label", "n_edges"):
+            assert torch.equal(getattr(h, name).cpu(), getattr(c, name))
+        assert h.capacity == c.capacity and h.edge_slot == c.edge_slot
+        cur = build_csr(g.n, np.asarray(sorted(h.edge_slot)))
+        np.testing.assert_array_equal(h.cores(), bz_from_csr(cur))
 
 
 def _wsum_window(n, e, seed, oor=()):

@@ -1,7 +1,7 @@
-"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
-``scripts/profile_burst.py`` import neither ``jax`` nor the reference
-package ``repro``, and the port's entry points run on the card unless
-the CPU is asked for."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
+``scripts/profile_burst.py`` and ``examples/stream_maintenance_torch.py``
+import neither ``jax`` nor the reference package ``repro``, and the
+port's entry points run on the card unless the CPU is asked for."""
 import ast
 import os
 import subprocess
@@ -55,7 +55,8 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py",
+       ROOT / "examples" / "stream_maintenance_torch.py"]
     + [ROOT / "scripts" / f for f in ("profile_burst.py",
                                       "time_attention.py",
                                       "time_coremaint.py")],

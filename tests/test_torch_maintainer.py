@@ -193,12 +193,26 @@ def test_empty_batch_stats():
     _assert_same(jm, tm, jm.apply_batch(), tm.apply_batch())
 
 
-@pytest.mark.parametrize("kw,item", [(dict(engine="host"), "items 1-6"),
-                                     (dict(engine="sharded"), "item 8")])
-def test_unported_configurations_raise(kw, item):
+@pytest.mark.parametrize("kw,ref_kw,exc,match", [
+    (dict(engine="host", kernel_backend="cuda"),
+     dict(engine="host", kernel_backend="pallas"), ValueError,
+     "needs a device engine"),
+    (dict(engine="host", weighted=True), dict(engine="host", weighted=True),
+     ValueError, "needs a device engine"),
+    (dict(engine="sharded"), None, NotImplementedError, "item 8"),
+], ids=["host-cuda", "host-weighted", "sharded"])
+def test_unported_configurations_raise(kw, ref_kw, exc, match):
+    """The sharded engine is not ported; the host engine refuses the
+    kernel backend and weighted coreness with ValueError, as the
+    reference does, and before any device check, so the message is the
+    same on the CPU."""
     g = build_csr(10, np.array([[0, 1], [1, 2]]))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         CoreMaintainer.from_graph(g, device="cpu", **kw)
+    if ref_kw is not None:
+        with pytest.raises(exc, match=match):
+            JaxMaintainer.from_graph(jax_build_csr(10, np.array([[0, 1]])),
+                                     **ref_kw)
 
 
 def test_insert_weights_raise():
