@@ -3,7 +3,8 @@
 card: builds the Hopper kernels from this checkout, checks each against
 its plain PyTorch version, and drives the main paths — one mixed batch
 at a time through ``CoreMaintainer.apply_batch`` on the unified engine,
-unweighted and weighted, and on the host engine — at full width.
+unweighted and weighted, on the host engine, and on the sharded engine
+over a world of one NCCL rank — at full width.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -91,7 +92,24 @@ Phases:
      phase 6;
      (c) ``flash_attention`` once in each of phase 6's cases. Each row of
      the kernels line is one kernel instance (an op, a dtype, a mask),
-     and its launches are that instance's.
+     and its launches are that instance's;
+  8. (run after phase 5) ``engine="sharded"`` on a world of one NCCL rank
+     on ``cuda:0`` (``launch.mesh.make_edge_mesh``), ``kernel_backend=
+     "cuda"``, from a device copy of the state phase 4 started from
+     (no second peel), through phase 4's burst pair and mixed batches:
+     after every batch the cores, labels, ``n_inserted``, ``n_removed``,
+     the rounds and ``high_water`` equal phase 4's, and the slot table
+     equals the unified engine's (one shard: ascending slot ids); per
+     batch the wall time beside phase 4's, the launches of each kernel
+     instance (under a mesh axis kernel a's ``mcd_hi_dout`` and
+     ``hi_dout`` run where the fused b and c run on one device; b and c
+     must stay at 0) and the all-reduce / all-gather counts and bytes
+     from ``vertex_layout.record_traffic``; at the end the cores against
+     a fresh peel and the k-order certificate. Then the same for phase
+     5's weighted batches from a copy of phase 5's starting state (the
+     ``wsum`` launches). The kernels line's coremaint rows gain
+     ``sharded_launches``, and the ``mcd_hi_dout`` / ``hi_dout`` rows'
+     ``launches`` are phase 8's.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
@@ -167,6 +185,10 @@ STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
 MAIN_PATH_KERNELS = ("coo_stat[din]", "coo_stat[same_in]",
                      "fused_removal_round", "fused_promotion_stats")
 WEIGHTED_PATH_KERNELS = ("coo_stat[wsum]",)
+# phase 8: under a mesh axis the fused decisions (b, c) wait for the
+# completed statistics, so kernel a's unit statistics run in their place
+SHARDED_PATH_KERNELS = ("coo_stat[mcd_hi_dout]", "coo_stat[hi_dout]",
+                        "coo_stat[din]", "coo_stat[same_in]")
 
 
 class SmokeFailure(RuntimeError):
@@ -630,12 +652,31 @@ def certificate_ok(m) -> bool:
     return bool(((hi + dout) <= m.core).all())
 
 
+def snapshot(m) -> tuple:
+    """Device copies of the slot table (and weight column): phase 8's
+    yardstick for the sharded engine's table after each batch."""
+    cols = (m.src, m.dst, m.valid) + ((m.w,) if m.weighted else ())
+    return tuple(x.clone() for x in cols)
+
+
+def start_state(m) -> dict:
+    """A device copy of a maintainer's state, for phase 8 to start the
+    sharded engine where phases 4 and 5 start."""
+    keys = ("src", "dst", "valid", "n_edges", "core", "label") + (
+        ("w",) if m.weighted else ())
+    st = {k: getattr(m, k).clone() for k in keys}
+    st.update(n=m.n, capacity=m.capacity, n_levels=m.n_levels,
+              weighted=m.weighted)
+    return st
+
+
 def phase_main(device, m, g, sample, stream) -> tuple:
     """The main path: burst removal, its re-insertion, mixed batches.
     Returns the launch counts, the ``(stat, mask)`` list that
     ``record_masks`` kept over the burst pair, and per batch its name,
-    wall time, ``n_inserted``, ``n_removed`` and host copies of the
-    cores and labels after it (phase 4b's yardstick)."""
+    wall time, ``n_inserted``, ``n_removed``, rounds, high-water mark,
+    host copies of the cores and labels and a device copy of the slot
+    table after it (the yardstick of phases 4b and 8)."""
     import torch
     from repro_torch.core.decomposition import peel_decomposition
     from repro_torch.kernels import coremaint as K
@@ -659,7 +700,11 @@ def phase_main(device, m, g, sample, stream) -> tuple:
         history.append(dict(name=name, wall_s=dt,
                             n_inserted=int(st.n_inserted),
                             n_removed=int(st.n_removed), cores=m.cores(),
-                            labels=m.labels()))
+                            labels=m.labels(),
+                            rounds=(int(st.remove_rounds),
+                                    int(st.insert_rounds)),
+                            high_water=int(st.high_water),
+                            table=snapshot(m)))
         moved = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                  if K.LAUNCHES[k] != before[k]}
         log(f"phase 4 {name}: wall_s={dt:.4f} "
@@ -877,10 +922,11 @@ def phase_path_masks(device, snap, recorded, rows, iters: int) -> None:
             f" popcounts={pop} touched={[round(x, 6) for x in touched]}")
 
 
-def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> dict:
+def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> tuple:
     """The weighted main path: the burst ``g.edge_array()[pick]`` removed
     and re-inserted with its own weights, then ``stream``'s mixed batches
-    with random weights."""
+    with random weights. Returns the launch counts and per batch its
+    edits and what phase 8 holds the sharded engine to."""
     import torch
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.core.order import renumber
@@ -899,6 +945,7 @@ def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    history = []
     for name, ins, iw, rm in batches:
         before = K.LAUNCHES["coo_stat[wsum]"]
         sync(device)
@@ -907,6 +954,14 @@ def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> dict:
                            insert_weights=iw)
         sync(device)
         dt = time.perf_counter() - t0
+        history.append(dict(name=name, ins=ins, iw=iw, rm=rm, wall_s=dt,
+                            n_inserted=int(st.n_inserted),
+                            n_removed=int(st.n_removed), cores=m.cores(),
+                            labels=m.labels(),
+                            rounds=(int(st.remove_rounds),
+                                    int(st.insert_rounds)),
+                            high_water=int(st.high_water),
+                            table=snapshot(m)))
         mirror.apply(ins, iw, rm)
         log(f"phase 5 {name}: wall_s={dt:.4f} "
             f"remove_rounds={int(st.remove_rounds)} "
@@ -939,6 +994,133 @@ def phase_weighted(device, m, g, w0, pick, stream, seed: int = 1) -> dict:
     log(f"phase 5: cores == fresh weighted from_graph of the final live "
         f"edges and weights, weight column == host mirror, labels "
         f"canonical ({time.perf_counter() - t0:.1f} s)")
+    return launches, history
+
+
+def start_world():
+    """A world of one NCCL rank on ``cuda:0``, rendezvous through a file
+    store in a temporary directory (no port, no network). NCCL builds
+    its communicator at the first collective, so one all-reduce here
+    keeps that set-up out of the first batch's wall."""
+    import datetime
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    dist.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"phase 8 world of one NCCL rank: init_process_group and the "
+        f"first all_reduce (communicator set-up) "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def traffic_summary(log) -> dict:
+    """All-reduce and all-gather counts and bytes received, from the
+    records of ``vertex_layout.record_traffic``."""
+    red = [t for t in log if t.op.startswith(("psum", "pmax"))]
+    gat = [t for t in log if t.op.startswith("gather")]
+    return dict(all_reduce=len(red),
+                all_reduce_bytes=sum(t.recv_bytes for t in red),
+                all_reduce_stat_bytes=sum(t.recv_bytes for t in red
+                                          if t.op == "psum"),
+                all_gather=len(gat),
+                all_gather_bytes=sum(t.recv_bytes for t in gat))
+
+
+def phase_sharded(device, mesh, start, batches, history, tag) -> dict:
+    """Phase 8: ``engine="sharded"`` (a world of one NCCL rank,
+    ``kernel_backend="cuda"``) from a device copy of the state phase 4
+    (``tag="4"``) or phase 5 (``tag="5"``) started from, through the same
+    batches: after every batch the cores, labels, ``n_inserted``,
+    ``n_removed``, the rounds and ``high_water`` equal that phase's, and
+    the slot table equals the unified engine's (one shard: ascending slot
+    ids, as there). Per batch the wall time beside that phase's, the
+    launches of each kernel instance and the collectives. Returns the
+    launch counts over the run."""
+    import torch
+    from repro_torch.core.api import CoreMaintainer
+    from repro_torch.core.vertex_layout import record_traffic
+    from repro_torch.kernels import coremaint as K
+
+    where = f"phase 8 ({tag})"
+    t0 = time.perf_counter()
+    m = CoreMaintainer(
+        n=start["n"], capacity=start["capacity"], src=start["src"],
+        dst=start["dst"], valid=start["valid"], n_edges=start["n_edges"],
+        core=start["core"], label=start["label"],
+        n_levels=start["n_levels"], engine="sharded", mesh=mesh,
+        kernel_backend="cuda", weighted=start["weighted"],
+        w=start.get("w"))
+    sync(device)
+    check(m.src.shape[0] == m.capacity and m._n_shards == 1,
+          f"{where}: one shard holds the whole table")
+    log(f"{where} CoreMaintainer(engine='sharded', world of one NCCL rank, "
+        f"kernel_backend='cuda', weighted={m.weighted}): capacity="
+        f"{m.capacity} ({time.perf_counter() - t0:.1f} s)")
+    check(len(batches) == len(history), f"{where}: batch count")
+    K.reset_launches()
+    total = dict(all_reduce=0, all_reduce_bytes=0, all_reduce_stat_bytes=0,
+                 all_gather=0, all_gather_bytes=0)
+    for (name, ins, iw, rm), h in zip(batches, history):
+        before = dict(K.LAUNCHES)
+        with record_traffic() as tlog:
+            sync(device)
+            t1 = time.perf_counter()
+            st = m.apply_batch(insert_edges=ins, remove_edges=rm,
+                               insert_weights=iw)
+            sync(device)
+            dt = time.perf_counter() - t1
+        check(np.array_equal(m.cores(), h["cores"]),
+              f"{where} {name}: cores != phase {tag}")
+        check(np.array_equal(m.labels(), h["labels"]),
+              f"{where} {name}: labels != phase {tag}")
+        for f in ("n_inserted", "n_removed", "high_water"):
+            check(int(getattr(st, f)) == h[f],
+                  f"{where} {name}: {f} != phase {tag}")
+        rounds = (int(st.remove_rounds), int(st.insert_rounds))
+        check(rounds == h["rounds"], f"{where} {name}: rounds != phase {tag}")
+        check(all(torch.equal(a, b) for a, b in zip(snapshot(m),
+                                                    h["table"])),
+              f"{where} {name}: slot table != the unified engine's")
+        moved = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                 if K.LAUNCHES[k] != before[k]}
+        tr = traffic_summary(tlog)
+        for k in total:
+            total[k] += tr[k]
+        log(f"{where} {name}: wall_s={dt:.4f} (phase {tag} "
+            f"{h['wall_s']:.4f}, x{dt / h['wall_s']:.3f}) "
+            f"remove_rounds={rounds[0]} insert_rounds={rounds[1]} "
+            f"launches={json.dumps(moved)} collectives={json.dumps(tr)}")
+    launches = dict(K.LAUNCHES)
+    for k in ("fused_removal_round", "fused_promotion_stats"):
+        check(launches[k] == 0,
+              f"{where}: fused decision {k} ran under a mesh axis")
+    for k in (WEIGHTED_PATH_KERNELS if m.weighted else SHARDED_PATH_KERNELS):
+        check(launches[k] > 0, f"{where}: kernel {k} was never launched")
+    log(f"{where} launches={json.dumps(launches)} "
+        f"collectives={json.dumps(total)} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    t1 = time.perf_counter()
+    if m.weighted:
+        check(all(torch.equal(a, b) for a, b in zip(
+            snapshot(m), history[-1]["table"])),
+            f"{where}: final table and weights != phase 5's")
+        log(f"{where}: final cores, labels, slot table and weight column "
+            f"== phase 5's (held there against a fresh weighted "
+            f"from_graph and the host mirror)")
+    else:
+        from repro_torch.core.decomposition import peel_decomposition
+        want, _ = peel_decomposition(m.src, m.dst, m.valid, m.n)
+        check(torch.equal(m.core, want), f"{where}: cores != fresh peel")
+        check(certificate_ok(m), f"{where}: k-order certificate violated")
+        log(f"{where}: cores == fresh peel of the final live edge set, "
+            f"certificate holds ({time.perf_counter() - t1:.1f} s)")
     return launches
 
 
@@ -1435,6 +1617,7 @@ def main() -> int:
                                      m.core, m.label))
 
     # ---- phase 4 --------------------------------------------------------
+    start4 = start_state(m)  # phase 8 starts the sharded engine here
     rng = np.random.default_rng(0)
     pick = rng.choice(g.m, size=BURST, replace=False)
     t0 = time.perf_counter()
@@ -1457,7 +1640,6 @@ def main() -> int:
 
     # ---- phase 4b: the same batches on engine="host" ---------------------
     phase_host(device, g, g.edge_array()[pick], stream, history)
-    del history
 
     # ---- weighted main path set-up (phase 3 runs on its state) ----------
     w0 = np.random.default_rng(1).integers(1, MAX_WEIGHT + 1, g.m)
@@ -1473,13 +1655,43 @@ def main() -> int:
     wrows = phase_kernels_weighted(device, mw, ITERS)
 
     # ---- phase 5 --------------------------------------------------------
-    wlaunches = phase_weighted(device, mw, g, w0, pick, stream)
+    start5 = start_state(mw)
+    wlaunches, whistory = phase_weighted(device, mw, g, w0, pick, stream)
     for r in wrows:
         r["launches"] = wlaunches[r["name"]]
         r["status"] = "on the weighted main path"
     rows += wrows
     del mw
     torch.cuda.empty_cache()
+
+    # ---- phase 8: engine="sharded" on a world of one NCCL rank -----------
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_edge_mesh
+    t8 = time.perf_counter()
+    start_world()
+    mesh = make_edge_mesh()
+    sample = g.edge_array()[pick]
+    batches4 = [("burst remove", None, None, sample),
+                ("burst insert", sample, None, None)]
+    batches4 += [(f"mixed {ev.t}", ev.edges, None, ev.removals)
+                 for ev in stream]
+    slaunches = phase_sharded(device, mesh, start4, batches4, history, "4")
+    del start4, history, batches4
+    torch.cuda.empty_cache()
+    batches5 = [(h["name"], h["ins"], h["iw"], h["rm"]) for h in whistory]
+    swlaunches = phase_sharded(device, mesh, start5, batches5, whistory, "5")
+    del start5, whistory, batches5
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["sharded_launches"] = (swlaunches if r["name"] == "coo_stat[wsum]"
+                                 else slaunches)[r["name"]]
+        if r["name"] in ("coo_stat[mcd_hi_dout]", "coo_stat[hi_dout]"):
+            # their own counted path: the sharded engine's unfused rounds
+            r["launches"] = slaunches[r["name"]]
+            r["status"] = "on the sharded path (phase 8)"
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s (the smoke's growth "
+        f"for the sharded engine)")
 
     # ---- phases 6-7 set-up: the ER graph, its ELL matrix, its cores -----
     from repro_torch.graph.csr import ell_from_csr

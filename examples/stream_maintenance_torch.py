@@ -14,8 +14,18 @@ checkpoints are the payload both packages read and write.
     python examples/stream_maintenance_torch.py                  # ...resumes
     python examples/stream_maintenance_torch.py --weighted --verify
     python examples/stream_maintenance_torch.py --window 6
+    python examples/stream_maintenance_torch.py --engine sharded --verify
+    torchrun --nproc-per-node 4 examples/stream_maintenance_torch.py \
+        --engine sharded --mixed --verify                # 4 cards, NCCL
+
+``--engine sharded`` runs the replicated sharded engine over
+``torch.distributed``: under ``torchrun`` every rank takes its group from
+the environment (one card a rank); run alone it initializes a world of
+one (gloo on ``--device cpu``, NCCL on the card). Every rank replays the
+same stream; rank 0 prints and writes the checkpoints.
 """
 import argparse
+import datetime
 import os
 import sys
 import tempfile
@@ -56,14 +66,15 @@ def main():
         choices=("unified", "host", "sharded"),
         help="unified = one device program per batch; host = the seed "
              "two-call path (host dedup, plain PyTorch fixpoints); "
-             "sharded is not ported yet",
+             "sharded = the slot table sharded over the ranks of a "
+             "torch.distributed world (torchrun, or a world of one)",
     )
     ap.add_argument(
         "--weighted", action="store_true",
         help="maintain WEIGHTED coreness (weighted h-index, Zhou et al. "
              "WWW'21): random integer edge weights, verified against the "
-             "weighted peeling oracle under --verify; needs --engine "
-             "unified",
+             "weighted peeling oracle under --verify; needs a device "
+             "engine (unified or sharded)",
     )
     ap.add_argument(
         "--window", type=int, default=None, metavar="W",
@@ -78,11 +89,8 @@ def main():
              "the plain PyTorch backend)",
     )
     args = ap.parse_args()
-    if args.engine == "sharded":
-        ap.error("--engine sharded (the multi-GPU engines) is not ported "
-                 "yet: ROADMAP Queue 1 B")
     if args.weighted and args.engine == "host":
-        ap.error("--weighted needs a device engine (unified)")
+        ap.error("--weighted needs a device engine (unified or sharded)")
     if args.window is not None and args.window < 1:
         ap.error("--window must be >= 1")
 
@@ -114,20 +122,26 @@ def main():
     state_path = args.ckpt
     meta_path = args.ckpt + ".meta"
 
+    dist, own_group = (start_world(args.device) if args.engine == "sharded"
+                       else (None, False))
+    rank = dist.get_rank() if dist is not None else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
+
     start_batch = 0
     if os.path.exists(state_path) and os.path.exists(meta_path):
         m = CoreMaintainer.load(state_path, device=args.device,
                                 engine=args.engine, weighted=args.weighted)
         start_batch = int(open(meta_path).read().strip()) + 1
-        print(f"[resume] restored checkpoint, continuing at batch "
-              f"{start_batch}")
+        say(f"[resume] restored checkpoint, continuing at batch "
+            f"{start_batch}")
     else:
         m = CoreMaintainer.from_graph(
             g, capacity=8 * args.m, engine=args.engine,
             weighted=args.weighted, weights=w0, device=args.device,
         )
-    print(f"[device] {m.device} engine={m.engine} "
-          f"kernel_backend={m.kernel_backend}")
+    shards = f" shards={m.mesh.size()}" if m.engine == "sharded" else ""
+    say(f"[device] {m.device} engine={m.engine} "
+        f"kernel_backend={m.kernel_backend}{shards}")
 
     def sync():
         if m.device.type == "cuda":
@@ -163,44 +177,76 @@ def main():
         else:
             extra = f"|V*|={int(st.n_dropped)} rounds={int(st.rounds)}"
         edges_done += ev.n_edits
-        print(f"[batch {i:03d}] {ev.kind:6s} {ev.n_edits} edges "
+        say(f"[batch {i:03d}] {ev.kind:6s} {ev.n_edits} edges "
               f"in {dt*1e3:7.1f} ms  {extra}")
         if i % args.ckpt_every == 0:
             tmp = state_path + ".tmp.npz"
-            m.save(tmp)
-            os.replace(tmp, state_path)  # atomic commit
-            with open(meta_path + ".tmp", "w") as fh:
-                fh.write(str(i))
-            os.replace(meta_path + ".tmp", meta_path)
+            m.save(tmp)  # sharded: every rank gathers, rank 0 writes
+            if rank == 0:
+                os.replace(tmp, state_path)  # atomic commit
+                with open(meta_path + ".tmp", "w") as fh:
+                    fh.write(str(i))
+                os.replace(meta_path + ".tmp", meta_path)
+            if dist is not None:
+                dist.barrier()
         if args.simulate_crash and i == len(events) // 2:
-            print("[crash] simulating preemption — restart me to resume")
+            say("[crash] simulating preemption — restart me to resume")
             raise SystemExit(17)
 
     total = time.perf_counter() - t_all
-    print(f"\nprocessed {edges_done} edge events in {total:.2f}s "
+    say(f"\nprocessed {edges_done} edge events in {total:.2f}s "
           f"({edges_done/max(total, 1e-9):.0f} edges/s)")
 
     if args.verify:
         # rebuild the final graph on the host and compare with the oracle
+        # (edge_slot and state() gather the table: every rank calls them)
         items = sorted(m.edge_slot.items())
         live = np.asarray(
             [[a, b] for (a, b), _ in items], dtype=np.int64
         ).reshape(-1, 2)
         if args.weighted:
-            wcol = m.w.cpu().numpy()
+            wcol = m.state()["w"]
             lw = np.asarray([wcol[s] for _, s in items], dtype=np.int64)
             expect = weighted_core_oracle(m.n, live, lw)
             assert (m.cores() == expect).all()
-            print("final cores verified against the weighted peeling "
-                  "oracle ✓")
+            say("final cores verified against the weighted peeling "
+                "oracle ✓")
         else:
             expect = bz_from_csr(build_csr(m.n, live))
             assert (m.cores() == expect).all()
-            print("final cores verified against BZ ✓")
+            say("final cores verified against BZ ✓")
     # clean checkpoint on success
-    for p in (state_path, meta_path):
-        if os.path.exists(p):
-            os.remove(p)
+    if rank == 0:
+        for p in (state_path, meta_path):
+            if os.path.exists(p):
+                os.remove(p)
+    if own_group:
+        dist.destroy_process_group()
+
+
+def start_world(device: str):
+    """The sharded engine's process group: from the environment under
+    ``torchrun`` (``WORLD_SIZE`` set; one card a rank, by ``LOCAL_RANK``),
+    else a world of one through a file store in a temporary directory.
+    NCCL for a CUDA device, gloo for the CPU. Returns
+    ``(torch.distributed, whether this call initialized the group)``."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist, False
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    timeout = datetime.timedelta(seconds=120)
+    if "WORLD_SIZE" in os.environ:
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, timeout=timeout)
+    else:
+        store = dist.FileStore(
+            os.path.join(tempfile.mkdtemp(), "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                                timeout=timeout)
+    return dist, True
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Parallel order-based core maintenance on PyTorch — the single-device
-part of the reference's ``repro.core``: ``engine="unified"`` (unweighted
-and weighted) and ``engine="host"`` (the seed two-call path), with the
-applications of maintained cores.
+"""Parallel order-based core maintenance on PyTorch — the reference's
+``repro.core`` without its range and halo layouts: ``engine="unified"``
+(unweighted and weighted), ``engine="host"`` (the seed two-call path)
+and ``engine="sharded"`` with replicated vertex state over
+``torch.distributed``, with the applications of maintained cores.
 
 Layers:
 * ``oracle``        — sequential Simplified-Order / Traversal / BZ (numpy).
@@ -12,10 +13,14 @@ Layers:
                       (and the host engine's ``insert_batch``).
 * ``remove``        — batch-parallel mcd-cascade removal maintenance
                       (and the host engine's ``remove_batch``).
-* ``engine``        — the unified mixed-batch program.
-* ``vertex_layout`` — the single-device vertex layout.
+* ``engine``        — the mixed-batch program (unified, and each rank of
+                      the sharded engine).
+* ``sharded``       — the sharded engine's per-rank program and the
+                      core-only sharded building blocks.
+* ``vertex_layout`` — the replicated vertex layout, its collectives and
+                      ``record_traffic``.
 * ``weighted``      — weighted-coreness oracle and reference harness.
-* ``api``           — CoreMaintainer public interface (both engines).
+* ``api``           — CoreMaintainer public interface (all three engines).
 * ``applications``  — k-core masks and subgraphs, sampling weights.
 """
 from .oracle import (  # noqa: F401

@@ -1,8 +1,7 @@
 """CoreMaintainer — the public interface to parallel order-based core
 maintenance, on PyTorch.
 
-The port of the reference's ``core/api.py`` for one device, with both of
-its single-device engines:
+The port of the reference's ``core/api.py``, with three of its engines:
 
 * ``engine="unified"`` (the default): every batch (mixed insertions +
   removals) runs as one call of ``engine.apply_batch`` on the
@@ -13,18 +12,32 @@ its single-device engines:
   in plain PyTorch (the reference runs this path in lax only, so
   ``kernel_backend="cuda"`` and ``weighted=True`` raise with it).
   ``n_edges`` is the bump pointer, tombstones are reclaimed by
-  ``_compact`` and the table grows by ``_grow``.
+  ``_compact`` and the table grows by ``_grow``;
+* ``engine="sharded"`` with ``vertex_sharding="replicated"``: the
+  unified engine's program with the slot table sharded over a mesh's
+  ``"data"`` axis (core/sharded.py). The port is SPMD over
+  ``torch.distributed``: every rank constructs the same maintainer
+  (``mesh=`` a ``DeviceMesh``, by default ``launch.mesh.make_edge_mesh()``
+  over the initialized world) and calls ``apply_batch`` with the same
+  edits. Each rank keeps its ``capacity / world`` slots of the table;
+  ``core`` and ``label`` are replicated. ``freelist`` picks the slot
+  ranking (``"interleaved"`` | ``"hierarchical"``). The queries that
+  read the table (``edge_slot``, ``live_edges``, ``state``, ``save``)
+  are collectives: every rank calls them. ``vertex_sharding="range"`` /
+  ``"halo"`` are ROADMAP Queue 1 B items 2-4.
 
-Under ``engine="unified"`` the host keeps
+Under the device engines the host keeps
 
   * a lazily-built ``edge -> slot`` mirror for queries (``edge_slot``;
     dropped after each batch, built on first access), and
   * two monotone bounds for capacity planning: ``hwm_ub`` (upper bound
-    on the slot high-water mark, reported exactly by
+    on the per-shard slot high-water mark, reported exactly by
     ``stats.high_water``) and ``live_ub`` (upper bound on the live edge
     count). The free-list recycles tombstoned slots in the batch
     program, so the bounds are re-read from the device only when they
-    cross the capacity threshold.
+    cross the capacity threshold. Under the sharded engine both are
+    read from replicated values, so every rank plans — and defrags —
+    at the same batch.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no CUDA device is present; tests pass ``device="cpu"``.
@@ -41,8 +54,8 @@ inserts, and both maintenance phases run the weighted h-index fixpoint
 
 Checkpoints use the reference's ``np.savez_compressed`` payload (n,
 capacity, src, dst, valid, n_edges, core, label, and ``w`` when
-weighted), so they load in both directions and across both engines.
-The sharded engines are ROADMAP Queue 1 item 8.
+weighted), so they load in both directions, across the engines and
+across shard counts (the saved table is the global one).
 
 Edge endpoints are validated on every edit path: out-of-range vertices
 raise ``ValueError`` by default, or are dropped under ``validate=False``.
@@ -50,13 +63,14 @@ raise ``ValueError`` by default, or are dropped under ``validate=False``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..graph.csr import CSRGraph, build_csr
+from ..launch.mesh import make_edge_mesh
 from .decomposition import peel_decomposition, rank_to_labels
 from .engine import BatchStats, apply_batch, apply_batch_weighted
 from .graph_ops import KERNEL_BACKENDS
@@ -65,6 +79,12 @@ from .oracle import bz_core_decomposition
 from .order import needs_renumber, renumber
 from .remove import (RemoveStats, remove_batch,
                      weighted_core_fixpoint_pass)
+from .sharded import axis_group, make_sharded_apply
+from .vertex_layout import all_gather, axis_index, psum
+
+EDGE_AXIS = "data"  # mesh axis the sharded engine shards edge slots over
+
+_ENGINES = ("unified", "host", "sharded")
 
 _STATE_KEYS = ("n", "capacity", "src", "dst", "valid", "n_edges", "core",
                "label")
@@ -119,25 +139,53 @@ def resolve_backend(kernel_backend: Optional[str],
 
 
 def _check_config(engine: str, kernel_backend: Optional[str],
-                  weighted: bool) -> None:
-    """The engine, and the reference's refusals of the host engine, before
-    any device check (so the message is the same on every device)."""
-    if engine == "sharded":
-        raise NotImplementedError(
-            "engine='sharded' is ROADMAP Queue 1 item 8; the port runs "
-            "engine='unified' and engine='host'"
-        )
-    if engine not in ("unified", "host"):
+                  weighted: bool, mesh=None,
+                  vertex_sharding: str = "replicated",
+                  freelist: str = "interleaved") -> None:
+    """The engine configuration, checked as the reference's
+    ``__post_init__`` checks it, before any device check (so the message
+    is the same on every device)."""
+    if engine not in _ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
+    if vertex_sharding not in ("replicated", "range", "halo"):
+        raise ValueError(f"unknown vertex_sharding {vertex_sharding!r}")
+    if freelist not in ("interleaved", "hierarchical"):
+        raise ValueError(f"unknown freelist {freelist!r}")
+    if mesh is not None and engine != "sharded":
+        raise ValueError(
+            f"mesh= is only consumed by engine='sharded' (got "
+            f"engine={engine!r}) — a silently ignored mesh would hide a "
+            "misconfigured deployment"
+        )
+    if vertex_sharding in ("range", "halo"):
+        if engine != "sharded":
+            raise ValueError(
+                f"vertex_sharding={vertex_sharding!r} needs "
+                "engine='sharded' (the other engines keep full vertex "
+                "state on one device)"
+            )
+        raise NotImplementedError(
+            f"vertex_sharding={vertex_sharding!r} is ROADMAP Queue 1 B "
+            f"item {2 if vertex_sharding == 'range' else 4}; the port's "
+            "sharded engine runs vertex_sharding='replicated'"
+        )
+    if freelist == "hierarchical" and engine != "sharded":
+        raise ValueError(
+            "freelist='hierarchical' needs engine='sharded' — the "
+            "ranking only differs across shards, so accepting it "
+            "elsewhere would silently do nothing"
+        )
     if engine == "host" and kernel_backend == "cuda":
         raise ValueError(
-            "kernel_backend='cuda' needs a device engine ('unified') — "
+            "kernel_backend='cuda' needs a device engine ('unified' | "
+            "'sharded') — "
             "the host path runs the seed two-call path in plain PyTorch "
             "and would silently ignore it"
         )
     if engine == "host" and weighted:
         raise ValueError(
-            "weighted=True needs a device engine ('unified') — the seed "
+            "weighted=True needs a device engine ('unified' | 'sharded') "
+            "— the seed "
             "host path runs the unit-count order-maintenance fixpoints "
             "and has no weight column"
         )
@@ -149,20 +197,26 @@ class CoreMaintainer:
 
     n: int
     capacity: int
-    src: torch.Tensor      # int32 [capacity]
-    dst: torch.Tensor      # int32 [capacity]
-    valid: torch.Tensor    # bool [capacity]
+    # the slot table: int32 / int32 / bool [capacity], this rank's
+    # [capacity / world] shard under engine="sharded"
+    src: torch.Tensor
+    dst: torch.Tensor
+    valid: torch.Tensor
     # int32 scalar: the live edge count (unified), the bump pointer =
     # slot high-water mark (host)
     n_edges: torch.Tensor
     core: torch.Tensor     # int32 [n]
     label: torch.Tensor    # int64 [n]
     n_levels: int
-    engine: str = "unified"
+    engine: str = "unified"     # "unified" | "host" | "sharded"
+    mesh: Optional[Any] = None  # sharded engine only: a DeviceMesh with
+    #                             a "data" dimension
+    vertex_sharding: str = "replicated"  # "range" | "halo": ROADMAP B
+    freelist: str = "interleaved"        # "interleaved" | "hierarchical"
     kernel_backend: Optional[str] = None  # None: "cuda" on a card
     validate: bool = True  # raise on out-of-range endpoints (else mask)
     weighted: bool = False
-    w: Optional[torch.Tensor] = None  # int32 [capacity] when weighted
+    w: Optional[torch.Tensor] = None  # int32 slot column when weighted
     last_insert_stats: Optional[InsertStats] = None
     last_remove_stats: Optional[RemoveStats] = None
     last_batch_stats: Optional[BatchStats] = None
@@ -171,9 +225,17 @@ class CoreMaintainer:
     hwm_ub: int = -1   # upper bound on the slot high-water mark
     host_renumbered: bool = False  # the last host-path call renumbered
     _last_window: int = dataclasses.field(default=0, repr=False)
+    # the table tensors hold this rank's shard (set by _place_sharded)
+    _sharded_table: bool = dataclasses.field(default=False, repr=False)
+    # sharded engine: the mesh's "data" process group, and this rank's
+    # apply function for each per-shard window
+    _group: Any = dataclasses.field(default=None, repr=False)
+    _sharded_fns: Dict[int, Callable] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     def __post_init__(self) -> None:
-        _check_config(self.engine, self.kernel_backend, self.weighted)
+        _check_config(self.engine, self.kernel_backend, self.weighted,
+                      self.mesh, self.vertex_sharding, self.freelist)
         dev = self.src.device
         self.kernel_backend = resolve_backend(self.kernel_backend, dev,
                                               self.engine)
@@ -204,10 +266,73 @@ class CoreMaintainer:
             # the high-water mark (unified saves store the live count)
             self.n_edges = torch.tensor(self.hwm_ub, dtype=torch.int32,
                                         device=dev)
+        if self.engine == "sharded":
+            if self.mesh is None:
+                self.mesh = make_edge_mesh(axis=EDGE_AXIS)
+            if self.mesh.device_type != dev.type:
+                raise ValueError(
+                    f"the mesh is on {self.mesh.device_type!r} but the "
+                    f"maintainer's device is {dev}: NCCL meshes hold CUDA "
+                    "tensors, gloo meshes CPU tensors"
+                )
+            self._group = axis_group(self.mesh, EDGE_AXIS)
+            if self._n_shards > 1:
+                # one re-layout: pad capacity to an even shard split AND
+                # stride the live slots across the shards, so the
+                # densest shard's high-water mark starts near
+                # live / n_shards
+                self._defrag_to(self.capacity)
+            else:
+                self._place_sharded()
 
     @property
     def device(self) -> torch.device:
         return self.src.device
+
+    # -- sharded placement ---------------------------------------------------
+    @property
+    def _n_shards(self) -> int:
+        """Edge-slot shard count: the mesh size (1 off the sharded
+        engine)."""
+        if self.engine != "sharded":
+            return 1
+        return self.mesh.size()
+
+    @property
+    def _local_cap(self) -> int:
+        """Slots per shard (== capacity off the sharded engine)."""
+        return self.capacity // self._n_shards
+
+    def _place_sharded(self) -> None:
+        """Keep this rank's block of the global slot table (rank r holds
+        slots ``[r * local_cap, (r + 1) * local_cap)``, at offset 0 of
+        its own tensors); the vertex state stays replicated."""
+        lc = self._local_cap
+        r = axis_index(self._group)
+
+        def mine(x):
+            part = x[r * lc:(r + 1) * lc]
+            return part if lc == x.shape[0] else part.clone()
+
+        self.src, self.dst, self.valid = (mine(self.src), mine(self.dst),
+                                          mine(self.valid))
+        if self.weighted:
+            self.w = mine(self.w)
+        self._sharded_table = True
+
+    def _table(self):
+        """The GLOBAL slot table ``(src, dst, valid, w)`` (``w`` None when
+        unweighted): the tensors themselves off the sharded engine, one
+        ``all_gather`` a column of every rank's shard on it (a
+        collective: every rank calls it)."""
+        cols = (self.src, self.dst, self.valid,
+                self.w if self.weighted else None)
+        if not self._sharded_table:
+            return cols
+        return tuple(
+            None if x is None
+            else all_gather(x, self._group, "gather_table").reshape(-1)
+            for x in cols)
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -222,6 +347,9 @@ class CoreMaintainer:
         validate: bool = True,
         device=None,
         weights=None,
+        mesh: Optional[Any] = None,
+        vertex_sharding: str = "replicated",
+        freelist: str = "interleaved",
     ) -> "CoreMaintainer":
         """Build a maintainer from a static graph. ``init="host-bz"``
         runs the sequential BZ oracle on the host; ``init="jax-peel"``
@@ -235,8 +363,13 @@ class CoreMaintainer:
         weighted h-index fixpoint, from the weighted-degree bound, on
         the maintainer's device and kernel backend (the integer result
         cannot depend on the backend), and the initial labels are the
-        ``(core, vertex id)`` lexicographic ranks."""
-        _check_config(engine, kernel_backend, weighted)
+        ``(core, vertex id)`` lexicographic ranks.
+
+        ``engine="sharded"``: every rank calls this with the same graph
+        (``mesh``, ``vertex_sharding`` and ``freelist`` as the fields);
+        each computes the same initial state and keeps its shard."""
+        _check_config(engine, kernel_backend, weighted, mesh,
+                      vertex_sharding, freelist)
         dev = resolve_device(device)
         edges = g.edge_array()
         m = edges.shape[0]
@@ -254,7 +387,8 @@ class CoreMaintainer:
         common = dict(n=g.n, capacity=capacity, src=src, dst=dst, valid=val,
                       n_edges=torch.tensor(m, dtype=torch.int32, device=dev),
                       n_levels=g.n + 2, engine=engine, validate=validate,
-                      live_ub=m, hwm_ub=m)
+                      live_ub=m, hwm_ub=m, mesh=mesh,
+                      vertex_sharding=vertex_sharding, freelist=freelist)
         if weighted:
             wv = (np.ones(m, dtype=np.int64) if weights is None
                   else np.asarray(weights, dtype=np.int64).reshape(-1))
@@ -309,6 +443,9 @@ class CoreMaintainer:
         engine: str = "unified",
         weighted: bool = False,
         validate: bool = True,
+        mesh: Optional[Any] = None,
+        vertex_sharding: str = "replicated",
+        freelist: str = "interleaved",
     ) -> "CoreMaintainer":
         """Build a maintainer from the reference's state as numpy arrays:
         the keys of its ``save`` payload (n, capacity, src, dst, valid,
@@ -316,8 +453,11 @@ class CoreMaintainer:
         unweighted engine ignores a weight column, as the reference's
         unweighted ``load`` does; ``weighted=True`` without one adopts
         unit weights. Under ``engine="host"`` the saved ``n_edges`` is
-        raised to the slot high-water mark (the bump pointer)."""
-        _check_config(engine, kernel_backend, weighted)
+        raised to the slot high-water mark (the bump pointer). Under
+        ``engine="sharded"`` every rank calls it with the same (global)
+        arrays and keeps its shard."""
+        _check_config(engine, kernel_backend, weighted, mesh,
+                      vertex_sharding, freelist)
         dev = resolve_device(device)
         missing = [k for k in _STATE_KEYS if k not in arrays]
         if missing:
@@ -344,18 +484,22 @@ class CoreMaintainer:
             validate=validate,
             weighted=weighted,
             w=t("w", np.int32) if weighted and "w" in arrays else None,
+            mesh=mesh,
+            vertex_sharding=vertex_sharding,
+            freelist=freelist,
         )
 
     # -- queries -------------------------------------------------------------
     @property
     def edge_slot(self) -> Dict[Tuple[int, int], int]:
-        """Host mirror of the live edge -> slot table, built on first
-        access after a batch (queries tolerate the sync; the edit path
-        never reads it)."""
+        """Host mirror of the live edge -> GLOBAL slot table, built on
+        first access after a batch (queries tolerate the sync; the edit
+        path never reads it). A collective under the sharded engine."""
         if self.slot_cache is None:
-            live = torch.nonzero(self.valid).flatten().cpu().numpy()
-            src = self.src.cpu().numpy()[live]
-            dst = self.dst.cpu().numpy()[live]
+            src, dst, valid, _ = self._table()
+            live = torch.nonzero(valid).flatten().cpu().numpy()
+            src = src.cpu().numpy()[live]
+            dst = dst.cpu().numpy()[live]
             lo, hi = np.minimum(src, dst), np.maximum(src, dst)
             self.slot_cache = dict(zip(zip(lo.tolist(), hi.tolist()),
                                        live.tolist()))
@@ -375,7 +519,12 @@ class CoreMaintainer:
 
     @property
     def live_edges(self) -> int:
-        return int(self.valid.sum())
+        """The live edge count (one ``all_reduce`` under the sharded
+        engine: every rank calls it)."""
+        count = self.valid.sum(dtype=torch.int32)
+        if self._sharded_table:
+            count = psum(count, self._group, "psum_table")
+        return int(count)
 
     # -- validation ----------------------------------------------------------
     def _validated(self, edges, what: str, weights=None):
@@ -483,28 +632,51 @@ class CoreMaintainer:
             iw = _pad_pow2(ins_w.astype(np.int32), 1)
             lanes = [torch.from_numpy(x).to(dev)
                      for x in (iu, iv, iw, iok, ru, rv, rok)]
-            (self.src, self.dst, self.valid, self.w, self.core, self.label,
-             self.n_edges, stats) = apply_batch_weighted(
-                self.src, self.dst, self.valid, self.w, self.core,
-                self.label, self.n_edges, *lanes, self.n, self.n_levels,
-                window, kernel_backend=self.kernel_backend,
-            )
+            state = (self.src, self.dst, self.valid, self.w, self.core,
+                     self.label, self.n_edges)
         else:
             lanes = [torch.from_numpy(x).to(dev)
                      for x in (iu, iv, iok, ru, rv, rok)]
+            state = (self.src, self.dst, self.valid, self.core, self.label,
+                     self.n_edges)
+        if self.engine == "sharded":
+            # every rank runs its shard's window with the same batch
+            out = self._sharded_fn(window)(*state, *lanes)
+        elif self.weighted:
+            out = apply_batch_weighted(
+                *state, *lanes, self.n, self.n_levels, window,
+                kernel_backend=self.kernel_backend)
+        else:
+            out = apply_batch(*state, *lanes, self.n, self.n_levels, window,
+                              kernel_backend=self.kernel_backend)
+        if self.weighted:
+            (self.src, self.dst, self.valid, self.w, self.core, self.label,
+             self.n_edges, stats) = out
+        else:
             (self.src, self.dst, self.valid, self.core, self.label,
-             self.n_edges, stats) = apply_batch(
-                self.src, self.dst, self.valid, self.core, self.label,
-                self.n_edges, *lanes, self.n, self.n_levels, window,
-                kernel_backend=self.kernel_backend,
-            )
-        # monotone bounds: each insert can raise the high-water mark and
-        # the live count by at most one; removals only help
-        self.hwm_ub = min(self.hwm_ub + b_ins, self.capacity)
+             self.n_edges, stats) = out
+        # monotone bounds: each insert can raise the densest shard's
+        # high-water mark and the live count by at most one; removals
+        # only help
+        self.hwm_ub = min(self.hwm_ub + b_ins, self._local_cap)
         self.live_ub = min(self.live_ub + b_ins, self.capacity)
         self.slot_cache = None
         self.last_batch_stats = stats
         return stats
+
+    def _sharded_fn(self, local_active: int) -> Callable:
+        """This rank's sharded program for one per-shard window (a pow2
+        bucket), built once."""
+        fn = self._sharded_fns.get(local_active)
+        if fn is None:
+            fn = self._sharded_fns[local_active] = make_sharded_apply(
+                self.mesh, self.n, self.n_levels, axis=EDGE_AXIS,
+                local_active=local_active,
+                vertex_sharding=self.vertex_sharding,
+                freelist=self.freelist, kernel_backend=self.kernel_backend,
+                weighted=self.weighted,
+            )
+        return fn
 
     def _apply_batch_host(self, ins: np.ndarray,
                           rm: np.ndarray) -> BatchStats:
@@ -654,7 +826,7 @@ class CoreMaintainer:
 
     # -- capacity planning ----------------------------------------------------
     def _window(self, b_ins: int) -> int:
-        return plan_window(self.hwm_ub, b_ins, self.capacity)
+        return plan_window(self.hwm_ub, b_ins, self._local_cap)
 
     def _refresh_bounds(self) -> None:
         """Replace the monotone planning bounds with the exact values the
@@ -664,47 +836,63 @@ class CoreMaintainer:
         self.live_ub = int(self.n_edges)
 
     def _ensure_capacity(self, b_ins: int) -> None:
-        """Make the window able to hold the live slots plus this batch:
-        bound check -> exact-bound refresh -> defrag, growing in the same
-        re-layout if a packed table would still leave no headroom."""
-        if self.hwm_ub + b_ins + 1 < self.capacity:
+        """Make the per-shard window able to hold the live slots plus
+        this batch: bound check -> exact-bound refresh -> defrag, growing
+        in the same re-layout if a packed table would still leave no
+        headroom. Every decision reads replicated values."""
+        if self.hwm_ub + b_ins + 1 < self._local_cap:
             return
         self._refresh_bounds()
-        if self.hwm_ub + b_ins + 1 < self.capacity:
+        if self.hwm_ub + b_ins + 1 < self._local_cap:
             return
+        nd = self._n_shards
         new_cap = self.capacity
-        while self.live_ub + b_ins + 1 >= new_cap:
-            new_cap = max(new_cap * 2, new_cap + 2 * b_ins + 16)
+        # after a balanced defrag the densest shard holds ceil(live / nd)
+        while -(-self.live_ub // nd) + b_ins + 1 >= new_cap // nd:
+            new_cap = max(new_cap * 2, new_cap + nd * (2 * b_ins + 16))
         self._defrag_to(new_cap)
 
     def _defrag_to(self, new_cap: int) -> None:
-        """Repack the live slots into the lowest ``m`` slots of a table
-        of ``new_cap`` slots (compact and grow in one re-layout), on the
-        device. Preserves core/label state."""
-        live = torch.nonzero(self.valid).flatten()
+        """Repack the live slots into a balanced layout of ``new_cap``
+        slots (compact and grow in one re-layout), on the device: live
+        edge j lands on shard ``j % n_shards``, so every shard's
+        high-water mark starts at ``ceil(live / n_shards)`` (one shard:
+        the lowest ``m`` slots). ``new_cap`` is padded to a multiple of
+        the shard count. Preserves core/label state."""
+        nd = self._n_shards
+        new_cap += (-new_cap) % nd
+        src0, dst0, val0, w0 = self._table()
+        live = torch.nonzero(val0).flatten()
         m = int(live.shape[0])
         if new_cap <= m:
             raise ValueError(
                 f"defrag target {new_cap} cannot hold {m} live edges"
             )
         dev = self.device
+        # live edge j lands on shard j % nd, at local slot j // nd (every
+        # rank computes the same re-layout and keeps its block)
+        j = torch.arange(m, device=dev)
+        tgt = (j % nd) * (new_cap // nd) + j // nd
         src = torch.zeros(new_cap, dtype=torch.int32, device=dev)
         dst = torch.zeros(new_cap, dtype=torch.int32, device=dev)
         val = torch.zeros(new_cap, dtype=torch.bool, device=dev)
-        src[:m] = self.src[live]
-        dst[:m] = self.dst[live]
-        val[:m] = True
+        src[tgt] = src0[live]
+        dst[tgt] = dst0[live]
+        val[tgt] = True
         self.src, self.dst, self.valid = src, dst, val
         if self.weighted:
             w = torch.zeros(new_cap, dtype=torch.int32, device=dev)
-            w[:m] = self.w[live]
+            w[tgt] = w0[live]
             self.w = w
         self.n_edges = torch.tensor(m, dtype=torch.int32, device=dev)
         self.capacity = new_cap
         self.live_ub = m
-        self.hwm_ub = m
+        self.hwm_ub = -(-m // nd)
         self._last_window = 0  # fresh layout: let the next batch re-bucket
         self.slot_cache = None
+        self._sharded_table = False
+        if self.engine == "sharded":
+            self._place_sharded()
 
     def _compact(self) -> None:
         """Drop tombstoned slots: the host path's reclaim (the unified
@@ -716,7 +904,11 @@ class CoreMaintainer:
 
     def _grow_to(self, new_cap: int) -> None:
         """Extend the slot table with dead headroom (the host path's
-        growth step)."""
+        growth step). The sharded engine grows through ``_defrag_to``,
+        which also re-strides across the shards."""
+        if self.engine == "sharded":
+            self._defrag_to(new_cap)
+            return
         pad = new_cap - self.capacity
         if pad <= 0:
             return
@@ -731,37 +923,52 @@ class CoreMaintainer:
     def state(self) -> Dict[str, np.ndarray]:
         """The checkpoint payload as numpy arrays — the reference's
         ``save`` keys and dtypes (``w`` added when weighted), so
-        ``from_state`` of either package reads it."""
+        ``from_state`` of either package reads it. The table is the
+        GLOBAL one (gathered under the sharded engine: a collective), so
+        the payload loads on any engine and shard count."""
+        src, dst, valid, w = self._table()
         payload = dict(
             n=self.n,
             capacity=self.capacity,
-            src=self.src.cpu().numpy(),
-            dst=self.dst.cpu().numpy(),
-            valid=self.valid.cpu().numpy(),
+            src=src.cpu().numpy(),
+            dst=dst.cpu().numpy(),
+            valid=valid.cpu().numpy(),
             n_edges=self.n_edges.cpu().numpy(),
             core=self.cores(),
             label=self.labels(),
         )
         if self.weighted:
-            payload["w"] = self.w.cpu().numpy()
+            payload["w"] = w.cpu().numpy()
         return payload
 
     def save(self, path: str) -> None:
         """Checkpoint the maintainer (the free-list is implicit: a dead
-        slot is exactly a ``valid=False`` entry)."""
-        np.savez_compressed(path, **self.state())
+        slot is exactly a ``valid=False`` entry). Under the sharded
+        engine every rank calls it; rank 0 writes, behind a barrier."""
+        payload = self.state()
+        if not self._sharded_table:
+            np.savez_compressed(path, **payload)
+            return
+        if axis_index(self._group) == 0:
+            np.savez_compressed(path, **payload)
+        torch.distributed.barrier(group=self._group)
 
     @classmethod
     def load(cls, path: str, device=None,
              kernel_backend: Optional[str] = None,
              engine: str = "unified", weighted: bool = False,
-             validate: bool = True) -> "CoreMaintainer":
-        """Load a checkpoint of either package."""
+             validate: bool = True, mesh: Optional[Any] = None,
+             vertex_sharding: str = "replicated",
+             freelist: str = "interleaved") -> "CoreMaintainer":
+        """Load a checkpoint of either package, saved on any engine and
+        shard count (under ``engine="sharded"`` every rank loads it)."""
         with np.load(path) as z:
             arrays = {k: z[k] for k in z.files}
         return cls.from_state(arrays, device=device,
                               kernel_backend=kernel_backend, engine=engine,
-                              weighted=weighted, validate=validate)
+                              weighted=weighted, validate=validate,
+                              mesh=mesh, vertex_sharding=vertex_sharding,
+                              freelist=freelist)
 
 
 def maintainer_from_edges(n: int, edges, **kw) -> CoreMaintainer:

@@ -16,23 +16,32 @@ import torch
 from .api import CoreMaintainer
 
 
+def _kcore_mask(core, src, dst, valid, k: int) -> torch.Tensor:
+    keep = core >= k
+    return valid & keep[src] & keep[dst]
+
+
 def kcore_edge_mask(m: CoreMaintainer, k: int) -> torch.Tensor:
-    """Bool mask over the slot table, on the maintainer's device, of the
-    live edges whose BOTH endpoints lie in the k-core.
+    """Bool mask over the GLOBAL slot table, on the maintainer's device,
+    of the live edges whose BOTH endpoints lie in the k-core. Under the
+    sharded engine the table is gathered first (a collective: every
+    rank calls it).
 
     The induced subgraph on {v: core(v) >= k} restricted to these edges
     IS the k-core (maximality of the core decomposition)."""
-    keep = m.core >= k
-    return m.valid & keep[m.src] & keep[m.dst]
+    src, dst, valid, _ = m._table()
+    return _kcore_mask(m.core, src, dst, valid, k)
 
 
 def kcore_subgraph(m: CoreMaintainer, k: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-side (nodes, edges) of the k-core — GNN sparsification
-    input."""
-    mask = kcore_edge_mask(m, k).cpu().numpy()
-    src = m.src.cpu().numpy()[mask]
-    dst = m.dst.cpu().numpy()[mask]
+    input. Under the sharded engine the whole k-core, on every rank (one
+    gather of the table: a collective)."""
+    src, dst, valid, _ = m._table()
+    mask = _kcore_mask(m.core, src, dst, valid, k).cpu().numpy()
+    src = src.cpu().numpy()[mask]
+    dst = dst.cpu().numpy()[mask]
     nodes = np.nonzero(m.core.cpu().numpy() >= k)[0]
     return nodes, np.stack([src, dst], axis=1)
 

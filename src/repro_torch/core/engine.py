@@ -1,5 +1,7 @@
 """Unified device-resident edit engine: one mixed insert+remove batch per
-call — the port of the reference's ``core/engine.py`` for one device.
+call — the port of the reference's ``core/engine.py``. ``batch_program``
+is the ONE program body, shared by the unified engine (``axis=None``)
+and every rank of the replicated sharded engine (core/sharded.py).
 
   1. REMOVE  — vectorized slot lookup of the removal edges against the
                live ``(src, dst, valid)`` table, tombstoning, then the
@@ -19,7 +21,8 @@ instead updates the slot table IN PLACE: ``apply_batch`` hands
 ``batch_program`` views of the active window, and the tombstones and
 slot writes land directly in the full-capacity tensors (no slice and
 splice). ``apply_batch_weighted`` does the same with the slot table's
-weight column. The sharded and halo programs are ROADMAP Queue 1 item 8.
+weight column. The halo program (``batch_program_halo``) is ROADMAP
+Queue 1 B items 2-4.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from .insert import (freelist_alloc, promotion_fixpoint,
                      weighted_promotion_fixpoint)
 from .order import maybe_renumber
 from .remove import removal_fixpoint, weighted_core_fixpoint_pass
-from .vertex_layout import ReplicatedVertices
+from .vertex_layout import ReplicatedVertices, psum
 
 _BIG = 1 << 62  # sentinel key: tombstones sort past every real key
 
@@ -49,7 +52,7 @@ class BatchStats(NamedTuple):
     n_dropped: torch.Tensor      # |V*| of the removal phase
     renumbered: torch.Tensor     # True if the label renumber fired
     n_recycled: torch.Tensor     # inserts that reused a tombstoned slot
-    high_water: torch.Tensor     # post-batch slot high-water mark
+    high_water: torch.Tensor     # post-batch max per-shard high-water mark
     max_frontier: torch.Tensor   # max exchanged-mask count (both phases)
     n_overflow: torch.Tensor     # sparse exchanges that fell back (0 here)
 
@@ -98,7 +101,7 @@ def batch_dedup(ins_u, ins_v, ins_ok, n: int):
 
 def batch_program(src, dst, valid, core, label, n_edges,
                   ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
-                  n: int, n_levels: int, axis: Optional[str] = None,
+                  n: int, n_levels: int, axis=None,
                   layout: ReplicatedVertices | None = None,
                   freelist: str = "interleaved",
                   kernel_backend: str = "torch",
@@ -118,22 +121,31 @@ def batch_program(src, dst, valid, core, label, n_edges,
     renumber re-canonicalizes the labels whenever any core moved. The
     weighted return is ``(src, dst, valid, w, core, label, n_edges,
     stats)``.
+
+    ``axis`` (a process group: the mesh's ``"data"`` group) makes the
+    table arrays this rank's shard of the slot table, while the vertex
+    state and the batch lanes are replicated. It changes three things:
+    the free-list ranks dead slots across shards (``freelist``:
+    ``"interleaved"`` or ``"hierarchical"``, ``insert.freelist_alloc``);
+    found flags and counts are completed by ``all_reduce`` (an edge
+    lives in exactly one shard, so the sum of the local verdicts IS the
+    global verdict); and every fixpoint statistic is completed by the
+    vertex ``layout`` (``ReplicatedVertices(n, axis)`` by default), which
+    turns the fused decisions off.
     """
-    if axis is not None or freelist != "interleaved":
-        raise NotImplementedError(
-            "the sharded batch program is ROADMAP Queue 1 item 8"
-        )
     weighted = w is not None
     if weighted != (ins_w is not None):
         raise ValueError("w and ins_w come together (weighted mode)")
     if layout is None:
-        layout = ReplicatedVertices(n, device=core.device)
-    G._check_layout(layout)
-    capacity = src.shape[0]
+        layout = ReplicatedVertices(n, axis, device=core.device)
+    capacity = src.shape[0]  # this rank's window under a mesh axis
     dev = src.device
 
-    # pre-batch high-water mark: inserts landing below it reclaimed a
-    # tombstone (the n_recycled statistic)
+    def allsum(x):
+        return psum(x, axis, "psum_table")
+
+    # pre-batch LOCAL high-water mark: inserts landing below it reclaimed
+    # a tombstone (the n_recycled statistic)
     hwm0 = G.slot_high_water(valid)
     lookup = table_lookup(src, dst, valid, n)
 
@@ -148,7 +160,7 @@ def batch_program(src, dst, valid, core, label, n_edges,
     rm_mask = rm_mask.scatter_reduce_(0, rslot, found.to(torch.int32),
                                       "amax").bool()
     valid &= ~rm_mask
-    n_removed = rm_mask.sum(dtype=torch.int32)
+    n_removed = allsum(rm_mask.sum(dtype=torch.int32))
 
     core_pre_rm = core
     if weighted:
@@ -166,22 +178,26 @@ def batch_program(src, dst, valid, core, label, n_edges,
     # ---- 2. insert dedup + membership against the post-removal table --
     ilo, ihi, iok, key = batch_dedup(ins_u, ins_v, ins_ok, n)
     ifound, islot_hit = lookup(key)
-    iok = iok & ~(ifound & ~rm_mask[islot_hit])
+    exists = allsum((ifound & ~rm_mask[islot_hit]).to(torch.int32)) > 0
+    iok = iok & ~exists
 
     # ---- 3. slot allocation from the free-list + table writes ----------
-    lpos, iok = freelist_alloc(valid, iok)
-    # a kept lane always has a slot inside the table (lpos < capacity)
-    slots = lpos[iok]
-    src[slots] = ilo[iok].to(src.dtype)
-    dst[slots] = ihi[iok].to(dst.dtype)
+    lpos, iok = freelist_alloc(valid, iok, axis=axis,
+                               hierarchical=(freelist == "hierarchical"))
+    # a kept lane has a slot inside this table unless it landed on
+    # another shard (lpos == capacity)
+    put = lpos < capacity
+    slots = lpos[put]
+    src[slots] = ilo[put].to(src.dtype)
+    dst[slots] = ihi[put].to(dst.dtype)
     valid[slots] = True
     if weighted:
         # dedup kept the FIRST lane of an in-batch duplicate, so its
         # weight is the one written; a live re-insert was masked above
         # and keeps the stored weight
-        w[slots] = ins_w[iok].to(w.dtype)
+        w[slots] = ins_w[put].to(w.dtype)
     n_inserted = iok.sum(dtype=torch.int32)
-    n_recycled = (lpos < hwm0).sum(dtype=torch.int32)
+    n_recycled = allsum((lpos < hwm0).sum(dtype=torch.int32))
     # n_edges is the LIVE edge count
     n_edges = n_edges - n_removed + n_inserted
 
@@ -226,7 +242,7 @@ def batch_program(src, dst, valid, core, label, n_edges,
         n_dropped=n_dropped,
         renumbered=renumbered,
         n_recycled=n_recycled,
-        high_water=G.slot_high_water(valid),
+        high_water=G.slot_high_water(valid, axis),
         max_frontier=torch.maximum(rm_fmax, ins_fmax),
         n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
     )

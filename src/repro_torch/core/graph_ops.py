@@ -1,16 +1,22 @@
 """Vectorized per-vertex neighborhood statistics over COO edge slots.
 
-The port of the reference's ``core/graph_ops.py`` for one device
-(``layout=None`` or a ``ReplicatedVertices`` without a mesh axis, where
-completing a statistic is the identity). Each undirected edge is stored
-once; each statistic adds its per-edge indicators to both endpoints.
+The port of the reference's ``core/graph_ops.py``. Each undirected edge
+is stored once; each statistic adds its per-edge indicators to both
+endpoints. Every statistic takes an optional ``layout``
+(core/vertex_layout.py): on a rank of the sharded engine the edge
+arrays are this rank's slots and the local sums are COMPLETED by the
+layout (one ``all_reduce(SUM)`` over the mesh axis for
+``ReplicatedVertices``); with ``layout=None`` completion is the
+identity.
 
 This module is the KERNEL DISPATCH POINT: the round statistics accept
 ``backend="torch" | "cuda"``, the counterparts of the reference's
 ``"lax" | "pallas"``. The torch path gathers endpoint state and scatters
 with an ``index_add_`` pair (``_seg2``), the port of the lax path. The
 cuda path runs the hand-written kernels of ``kernels/coremaint.py`` and
-produces the same integer sums bit for bit. ``count_gt``,
+produces the same LOCAL integer sums bit for bit, completed by the
+layout exactly as the torch path's are, so the backend changes kernel
+launches, never collectives. ``count_gt``,
 ``count_same_level_after``, ``count_same_level_before_in`` and
 ``expand_forward`` have no kernel backend, as in the reference.
 """
@@ -21,49 +27,50 @@ from typing import Optional
 import torch
 
 from ..kernels import coremaint
-from .vertex_layout import ReplicatedVertices
+from .vertex_layout import ReplicatedVertices, VertexLayout, pmax
 
 KERNEL_BACKENDS = ("torch", "cuda")
 
 
-def _check_layout(layout) -> None:
-    if not completes_locally(layout):
-        raise NotImplementedError(
-            "statistics over a mesh layout are ROADMAP Queue 1 item 8 "
-            "(multi-GPU engines)"
-        )
-
-
-def completes_locally(layout: Optional[ReplicatedVertices]) -> bool:
+def completes_locally(layout: Optional[VertexLayout]) -> bool:
     """True when the layout's completion is the identity (one device):
     partial statistics ARE the global statistics, so the fused kernels
-    may commit per-vertex decisions after their edge pass."""
+    may commit per-vertex decisions after their edge pass. Under a mesh
+    axis the decision waits for the layout's collective."""
     return layout is None or (
         isinstance(layout, ReplicatedVertices) and layout.axis is None
     )
 
 
-def slot_high_water(valid: torch.Tensor, axis: Optional[str] = None):
-    """1 + the largest valid slot index (0 when empty), int32 scalar."""
-    if axis is not None:
-        raise NotImplementedError(
-            "per-shard high-water marks are ROADMAP Queue 1 item 8"
-        )
+def _complete(x: torch.Tensor, layout: Optional[VertexLayout]):
+    return x if layout is None else layout.complete(x)
+
+
+def _pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    return pmax(x, axis)
+
+
+def slot_high_water(valid: torch.Tensor, axis=None) -> torch.Tensor:
+    """1 + the largest valid slot index (0 when empty), int32 scalar.
+    With ``axis`` (a rank's shard of the table) the result is the max
+    over shards of each shard's LOCAL high-water mark — the "densest
+    shard" bound that sizes the sharded engine's per-shard window."""
     idx = torch.arange(1, valid.shape[0] + 1, dtype=torch.int32,
                        device=valid.device)
-    return torch.where(valid, idx, torch.zeros_like(idx)).max()
+    local = torch.where(valid, idx, torch.zeros_like(idx)).max()
+    return _pmax(local, axis)
 
 
 def _seg2(data_to_src: torch.Tensor, data_to_dst: torch.Tensor,
           src: torch.Tensor, dst: torch.Tensor, n: int,
           layout=None) -> torch.Tensor:
-    """Two-direction segment sum: one ``index_add_`` per direction."""
-    _check_layout(layout)
+    """Two-direction segment sum, one ``index_add_`` per direction,
+    completed by the layout."""
     out = torch.zeros((n,) + data_to_src.shape[1:], dtype=torch.int32,
                       device=src.device)
     out.index_add_(0, src, data_to_src.to(torch.int32))
     out.index_add_(0, dst, data_to_dst.to(torch.int32))
-    return out
+    return _complete(out, layout)
 
 
 def degree(src, dst, valid, n: int, layout=None) -> torch.Tensor:
@@ -76,9 +83,8 @@ def count_ge(src, dst, valid, vals, n: int, layout=None,
     """mcd (Def 3.8): per-vertex count of neighbors w with
     vals[w] >= vals[v]."""
     if backend == "cuda":
-        _check_layout(layout)
         out = coremaint.coo_stat(src, dst, valid, vals, None, n, stat="mcd")
-        return out[:, 0]
+        return _complete(out, layout)[:, 0]
     cs, cd = vals[src], vals[dst]
     return _seg2(valid & (cd >= cs), valid & (cs >= cd), src, dst, n,
                  layout)
@@ -110,9 +116,8 @@ def hi_and_dout_same(src, dst, valid, core, label, n: int, layout=None,
     scatter carries the higher-core neighbor count and the same-level
     k-order successor count."""
     if backend == "cuda":
-        _check_layout(layout)
-        out = coremaint.coo_stat(src, dst, valid, core, label, n,
-                                 stat="hi_dout")
+        out = _complete(coremaint.coo_stat(src, dst, valid, core, label, n,
+                                           stat="hi_dout"), layout)
         return out[:, 0], out[:, 1]
     hi_s, hi_d, do_s, do_d = hi_dout_indicators(core, label, src, dst,
                                                 valid)
@@ -127,9 +132,8 @@ def mcd_hi_dout(src, dst, valid, core, label, n: int, layout=None,
     together with both promotion-seeding statistics, in one [n, 3]
     scatter."""
     if backend == "cuda":
-        _check_layout(layout)
-        out = coremaint.coo_stat(src, dst, valid, core, label, n,
-                                 stat="mcd_hi_dout")
+        out = _complete(coremaint.coo_stat(src, dst, valid, core, label, n,
+                                           stat="mcd_hi_dout"), layout)
         return out[:, 0], out[:, 1], out[:, 2]
     hi_s, hi_d, do_s, do_d = hi_dout_indicators(core, label, src, dst,
                                                 valid)
@@ -163,10 +167,9 @@ def count_same_level_in(src, dst, valid, core, mask, n: int, layout=None,
                         backend: str = "torch") -> torch.Tensor:
     """Per-vertex count of same-level neighbors inside ``mask``."""
     if backend == "cuda":
-        _check_layout(layout)
         out = coremaint.coo_stat(src, dst, valid, core, None, n,
                                  stat="same_in", aux=mask)
-        return out[:, 0]
+        return _complete(out, layout)[:, 0]
     same = valid & (core[src] == core[dst])
     return _seg2(same & mask[dst], same & mask[src], src, dst, n, layout)
 
@@ -176,9 +179,9 @@ def din_and_expand(src, dst, valid, core, label, rp, n: int, layout=None,
     """FORWARD-wave statistics in one scatter: din counts reached-and-
     passing k-order predecessors, and frontier growth is ``din > 0``."""
     if backend == "cuda":
-        _check_layout(layout)
-        din = coremaint.coo_stat(src, dst, valid, core, label, n,
-                                 stat="din", aux=rp)[:, 0]
+        out = coremaint.coo_stat(src, dst, valid, core, label, n,
+                                 stat="din", aux=rp)
+        din = _complete(out, layout)[:, 0]
         return din, din > 0
     same = valid & (core[src] == core[dst])
     fwd_to_dst = same & (label[src] < label[dst]) & rp[src]
@@ -194,10 +197,9 @@ def weighted_support(src, dst, valid, w, core, thresh, n: int, layout=None,
     inner statistic of the weighted h-index bisection; with unit weights
     and ``thresh == core`` this IS mcd)."""
     if backend == "cuda":
-        _check_layout(layout)
         out = coremaint.coo_stat(src, dst, valid, core, None, n,
                                  stat="wsum", aux=thresh, edge_w=w)
-        return out[:, 0]
+        return _complete(out, layout)[:, 0]
     wi = w.to(torch.int32)
     zero = torch.zeros_like(wi)
     to_src = torch.where(valid & (core[dst] >= thresh[src]), wi, zero)
@@ -215,7 +217,9 @@ def weighted_h_index(src, dst, valid, w, core, upper, n: int, layout=None,
     feasible (``lo = 0`` trivially); converged lanes re-test
     ``mid == lo`` and stay fixed, so the loop runs until the slowest
     lane converges. The reference's ``lax.while_loop`` is a Python loop
-    here, one host sync per step (its condition)."""
+    here, one host sync per step (its condition). Under a mesh layout
+    each step completes its support with one ``all_reduce``, so ``lo``
+    and ``hi`` — and the loop condition — are the same on every rank."""
     upper = torch.clamp(upper.to(torch.int32), min=0)
     lo = torch.zeros_like(upper)
     hi = upper

@@ -1,5 +1,6 @@
 """Batch-parallel edge insertion maintenance (paper Algorithm 5) — the
-port of the reference's ``core/insert.py`` for one device.
+port of the reference's ``core/insert.py``, on one device or on a rank
+of the replicated sharded engine.
 
 Round structure (all levels of all inserted edges processed together):
 
@@ -25,7 +26,7 @@ host path runs lax.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -33,7 +34,7 @@ from . import graph_ops as G
 from ..kernels import coremaint
 from .order import place_block
 from .remove import weighted_core_fixpoint_pass
-from .vertex_layout import ReplicatedVertices
+from .vertex_layout import ReplicatedVertices, all_gather, axis_index
 
 
 class InsertStats(NamedTuple):
@@ -44,30 +45,60 @@ class InsertStats(NamedTuple):
 
 
 def freelist_alloc(valid: torch.Tensor, iok: torch.Tensor,
-                   axis: Optional[str] = None,
-                   hierarchical: bool = False
+                   axis=None, hierarchical: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Recycling slot allocator: every dead slot IS the free-list.
 
-    Dead slots (``~valid``) are ranked in ascending slot order and the
-    batch's kept inserts (``iok``, ranked by cumsum) take the
-    lowest-ranked free slots one to one.
+    Dead slots (``~valid``) are ranked in (local slot, shard) order and
+    the batch's kept inserts (``iok``, ranked by cumsum) take the
+    lowest-ranked free slots one to one. Filling the lowest local
+    indices first, interleaved ACROSS shards, keeps the densest shard's
+    high-water mark (which sizes the per-shard window) near
+    ``live / n_shards``. On one shard every order is ascending slot id,
+    so the unified and one-rank sharded engines pick the same slots.
 
-    Returns ``(lpos, iok)``: ``lpos[b]`` is the slot of insert lane
-    ``b`` (``== capacity`` when the lane is masked), and ``iok``
-    narrowed by the free-exhaustion guard. Sync-free: the reference's
-    ``mode="drop"`` scatter becomes a scatter into one spare row.
+    With ``axis`` (a process group; each rank holds its shard of the
+    table) each rank ranks its own dead slots from one ``all_gather``
+    of the windowed dead masks, ``[world, window]``, writes the batch
+    ranks that land in its shard and drops the rest.
+    ``hierarchical`` gathers ONE scalar per shard instead (the per-shard
+    free count, ``[world]``): the ranking becomes (shard, local slot),
+    which gives up the interleaved shard balance for O(world) bytes a
+    batch. Neither changes the live edge set or the cores and labels.
+
+    Returns ``(lpos, iok)``: ``lpos[b]`` is this shard's local slot for
+    insert lane ``b`` (``== capacity`` when the lane is masked or lands
+    on another shard), and ``iok`` narrowed by the free-exhaustion
+    guard (replicated: it depends on global counts only). Sync-free:
+    the reference's ``mode="drop"`` scatter becomes a scatter into one
+    spare row.
     """
-    if axis is not None or hierarchical:
-        raise NotImplementedError(
-            "the sharded free-list ranking is ROADMAP Queue 1 item 8"
-        )
     capacity = valid.shape[0]
     b = iok.shape[0]
     dev = valid.device
     dead = ~valid
-    total_free = dead.sum(dtype=torch.int32)
-    drank = torch.cumsum(dead, 0, dtype=torch.int32) - 1
+    if axis is None:
+        total_free = dead.sum(dtype=torch.int32)
+        drank = torch.cumsum(dead, 0, dtype=torch.int32) - 1
+    elif hierarchical:
+        my_free = dead.sum(dtype=torch.int32).reshape(1)
+        counts = all_gather(my_free, axis, "gather_freelist")[:, 0]
+        me = axis_index(axis)
+        total_free = counts.sum(dtype=torch.int32)
+        # my dead slot with local free-rank r has global rank (free slots
+        # on shards before me) + r: (shard, slot) order
+        base = counts[:me].sum(dtype=torch.int32)
+        drank = base + torch.cumsum(dead, 0, dtype=torch.int32) - 1
+    else:
+        all_dead = all_gather(dead, axis, "gather_freelist")  # [world, cap]
+        me = axis_index(axis)
+        col = all_dead.sum(0, dtype=torch.int32)  # dead slots per index
+        total_free = col.sum(dtype=torch.int32)
+        # free rank of MY dead slot i = dead slots at indices < i (any
+        # shard) + dead slots at index i on shards before me
+        col_before = torch.cumsum(col, 0, dtype=torch.int32) - col
+        row_before = all_dead[:me].sum(0, dtype=torch.int32)
+        drank = col_before + row_before
     rank = torch.cumsum(iok, 0, dtype=torch.int32) - 1
     iok = iok & (rank < total_free)
     # ranks past the batch can never be targets (rank < b always): their
@@ -145,13 +176,18 @@ def promotion_fixpoint(
     max_frontier)``.
 
     ``kernel_backend="cuda"`` runs every wave/evict statistic through
-    ``coo_stat`` and the terminating statistics with the violator check
-    through ``fused_promotion_stats``.
+    ``coo_stat``; where the layout completes locally the terminating
+    statistics and the violator check run as ``fused_promotion_stats``,
+    under a mesh axis as ``coo_stat(stat="hi_dout")`` completed by the
+    layout before the check. With a mesh layout the table arrays are
+    this rank's shard and every loop condition reads completed values,
+    so all ranks run the same rounds.
     """
     if layout is None:
         layout = ReplicatedVertices(n, device=core.device)
-    G._check_layout(layout)
-    fuse_decision = kernel_backend == "cuda"
+    # the fused violator check needs the COMPLETED statistics in the
+    # kernel: only where the layout completes locally (one device)
+    fuse_decision = kernel_backend == "cuda" and G.completes_locally(layout)
     dev = core.device
     promoted_prev = torch.zeros(n, dtype=torch.bool, device=dev)
     v_plus = torch.zeros(n, dtype=torch.bool, device=dev)

@@ -1,5 +1,8 @@
 """Batch-parallel edge removal maintenance (paper Algorithm 6) — the port
-of the reference's ``core/remove.py`` for one device.
+of the reference's ``core/remove.py``, on one device or on a rank of the
+replicated sharded engine (``layout`` over a mesh axis: every statistic
+completed by one ``all_reduce``, every loop condition read from
+completed values, so all ranks run the same rounds).
 
 The mcd cascade is a decrease-only fixpoint over dense per-vertex state:
 
@@ -48,15 +51,19 @@ def removal_fixpoint(
     returns zero hi/dout_same.
 
     ``kernel_backend="cuda"`` runs each round as ``fused_removal_round``
-    (stats, drop decision and core commit). The reference's
+    (stats, drop decision and core commit) where the layout completes
+    locally; under a mesh axis the decision needs the completed mcd, so
+    the round runs ``coo_stat(stat="mcd_hi_dout")`` (or ``"mcd"``),
+    completes it, and decides after. The reference's
     ``lax.while_loop`` is a Python loop here, one host sync per round;
     ``rounds`` counts body executions, including the last one, which
     drops nothing.
     """
     if layout is None:
         layout = ReplicatedVertices(n, device=core.device)
-    G._check_layout(layout)
-    fuse_decision = kernel_backend == "cuda"
+    # decision fusion needs the GLOBAL mcd in the kernel: only where the
+    # layout completes statistics locally (one device)
+    fuse_decision = kernel_backend == "cuda" and G.completes_locally(layout)
     hi = dout_same = layout.zeros()
     fmax = torch.zeros((), dtype=torch.int32, device=core.device)
     rounds = 0
@@ -76,7 +83,8 @@ def removal_fixpoint(
             else:
                 mcd = G.count_ge(src, dst, valid, core, n, layout,
                                  backend=kernel_backend)
-            drop = (mcd < core) & (core > 0)
+            core_own = layout.own(core)
+            drop = layout.gather_mask((mcd < core_own) & (core_own > 0))
             new_core = core - drop.to(torch.int32)
         fmax = torch.maximum(fmax, layout.frontier_peak(drop))
         rounds += 1
@@ -136,7 +144,6 @@ def weighted_core_fixpoint_pass(
     reference's ``lax.while_loop`` does."""
     if layout is None:
         layout = ReplicatedVertices(n, device=core.device)
-    G._check_layout(layout)
     fmax = torch.zeros((), dtype=torch.int32, device=core.device)
     rounds = 0
     while True:

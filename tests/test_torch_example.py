@@ -1,8 +1,9 @@
 """The port's streaming service, ``examples/stream_maintenance_torch.py``,
 run on the CPU at a small size: ``--mixed --verify`` and the
-single-kind stream on each engine, the weighted sliding-window stream,
-a simulated crash (exit 17) and the resume from its checkpoint (which
-the reference package loads too), and the refusals."""
+single-kind stream on each engine (``--engine sharded`` on a world of
+one gloo rank), the weighted sliding-window stream, a simulated crash
+(exit 17) and the resume from its checkpoint (which the reference
+package loads too), and the refusal."""
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +28,7 @@ def run(tmp_path, *args, timeout=300):
 
 
 @pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "single"])
-@pytest.mark.parametrize("engine", ["unified", "host"])
+@pytest.mark.parametrize("engine", ["unified", "host", "sharded"])
 def test_verify_passes(tmp_path, engine, mixed):
     rc, out, err = run(tmp_path, "--engine", engine, "--verify",
                        *(["--mixed"] if mixed else []))
@@ -45,7 +46,15 @@ def test_weighted_window_verify(tmp_path):
     assert "final cores verified against the weighted peeling oracle ✓" in out
 
 
-@pytest.mark.parametrize("engine", ["unified", "host"])
+def test_weighted_window_verify_sharded(tmp_path):
+    rc, out, err = run(tmp_path, "--weighted", "--window", "3",
+                       "--verify", "--engine", "sharded")
+    assert rc == 0, err
+    assert "engine=sharded kernel_backend=torch shards=1" in out
+    assert "final cores verified against the weighted peeling oracle ✓" in out
+
+
+@pytest.mark.parametrize("engine", ["unified", "host", "sharded"])
 def test_crash_and_resume(tmp_path, engine):
     args = ("--engine", engine, "--mixed", "--verify", "--ckpt-every", "1")
     rc, out, err = run(tmp_path, *args, "--simulate-crash")
@@ -58,8 +67,10 @@ def test_crash_and_resume(tmp_path, engine):
     pytest.importorskip("jax", reason="the reference package runs on jax")
     from repro.core.api import CoreMaintainer as JaxMaintainer
     from repro_torch.core.api import CoreMaintainer
+    # a sharded checkpoint holds the global table: it loads on one device
+    one = "unified" if engine == "sharded" else engine
     jm = JaxMaintainer.load(str(ckpt), engine=engine)
-    tm = CoreMaintainer.load(ckpt, device="cpu", engine=engine)
+    tm = CoreMaintainer.load(ckpt, device="cpu", engine=one)
     np.testing.assert_array_equal(tm.cores(), jm.cores())
     np.testing.assert_array_equal(tm.labels(), jm.labels())
     assert tm.edge_slot == jm.edge_slot
@@ -72,9 +83,8 @@ def test_crash_and_resume(tmp_path, engine):
 
 
 @pytest.mark.parametrize("args,msg", [
-    (("--engine", "sharded"), "ROADMAP Queue 1 B"),
     (("--engine", "host", "--weighted"), "needs a device engine"),
-], ids=["sharded", "host-weighted"])
+], ids=["host-weighted"])
 def test_refusals(tmp_path, args, msg):
     rc, out, err = run(tmp_path, *args)
     assert rc == 2 and msg in err

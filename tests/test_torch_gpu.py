@@ -4,8 +4,10 @@ sums and for ``ell_stat``; the float kernels' tolerances are stated at
 each test), the unified maintainer, unweighted and weighted, with
 ``kernel_backend="cuda"`` against ``kernel_backend="torch"`` and the
 BZ / weighted peeling oracle, batch by batch, the host engine on the
-card against the unified engine and against itself on the CPU, and
-DeepFM serving with the FM kernel against its plain branch.
+card against the unified engine and against itself on the CPU, the
+sharded engine on a world of one NCCL rank against the torch backend and
+the unified engine, and DeepFM serving with the FM kernel against its
+plain branch.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA
 device; the module imports neither jax nor the reference package, so it
@@ -301,6 +303,77 @@ def test_weighted_maintainer_cuda_matches_torch_backend_and_oracle(graph,
         np.testing.assert_array_equal(a.cores(), want)
     assert K.LAUNCHES["coo_stat[wsum]"] > 0
     assert K.LAUNCHES["fused_removal_round"] == 0
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one NCCL rank on the card, rendezvous through a file
+    store (the sharded engine's mesh on one card)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_edge_mesh
+
+    _card()
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"),
+                           1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_edge_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unit", "weighted"])
+@pytest.mark.parametrize("graph", ["er", "rmat"])
+@pytest.mark.parametrize("stream", ["mixed", "churn"])
+def test_sharded_world_of_one_cuda_matches_torch(nccl_mesh, graph, stream,
+                                                 weighted):
+    """``engine="sharded"`` on a world of one NCCL rank: the kernel
+    backend equals the torch backend batch by batch (stats, cores,
+    labels, slot table, weights), and the cores and labels equal the
+    unified engine's; kernel a's unit statistics (d when weighted) run,
+    the fused decisions b and c never do."""
+    g = (erdos_renyi(500, 2500, seed=3) if graph == "er"
+         else rmat(9, 3000, seed=3))
+    rng = np.random.default_rng(5)
+    w0 = rng.integers(1, 6, g.m) if weighted else None
+    events = (mixed_stream(g, 5, 80, seed=4) if stream == "mixed"
+              else churn_stream(g, 5, 80, seed=4))
+    kw = dict(weighted=weighted, weights=w0)
+    a = CoreMaintainer.from_graph(g, engine="sharded", mesh=nccl_mesh, **kw)
+    b = CoreMaintainer.from_graph(g, engine="sharded", mesh=nccl_mesh,
+                                  kernel_backend="torch", **kw)
+    u = CoreMaintainer.from_graph(g, kernel_backend="torch", **kw)
+    assert (a.device.type, a.kernel_backend) == ("cuda", "cuda")
+    launched = dict.fromkeys(K.LAUNCHES, 0)
+    for ev in events:
+        iw = rng.integers(1, 6, len(ev.edges)) if weighted else None
+        before = dict(K.LAUNCHES)
+        sa = a.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals,
+                           insert_weights=iw)
+        for k in K.LAUNCHES:
+            launched[k] += K.LAUNCHES[k] - before[k]
+        sb = b.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals,
+                           insert_weights=iw)
+        u.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals,
+                      insert_weights=iw)
+        for f in sa._fields:
+            assert int(getattr(sa, f)) == int(getattr(sb, f)), f
+        names = ("core", "label", "src", "dst", "valid") + (
+            ("w",) if weighted else ())
+        for name in names:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+            assert torch.equal(getattr(a, name), getattr(u, name)), name
+    assert launched["fused_removal_round"] == 0
+    assert launched["fused_promotion_stats"] == 0
+    want = (("coo_stat[wsum]",) if weighted else
+            ("coo_stat[mcd_hi_dout]", "coo_stat[hi_dout]", "coo_stat[din]",
+             "coo_stat[same_in]"))
+    for k in want:
+        assert launched[k] > 0, k
 
 
 def test_cpu_tensors_never_launch_wsum():

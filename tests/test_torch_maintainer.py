@@ -199,13 +199,12 @@ def test_empty_batch_stats():
      "needs a device engine"),
     (dict(engine="host", weighted=True), dict(engine="host", weighted=True),
      ValueError, "needs a device engine"),
-    (dict(engine="sharded"), None, NotImplementedError, "item 8"),
-], ids=["host-cuda", "host-weighted", "sharded"])
+], ids=["host-cuda", "host-weighted"])
 def test_unported_configurations_raise(kw, ref_kw, exc, match):
-    """The sharded engine is not ported; the host engine refuses the
-    kernel backend and weighted coreness with ValueError, as the
-    reference does, and before any device check, so the message is the
-    same on the CPU."""
+    """The host engine refuses the kernel backend and weighted coreness
+    with ValueError, as the reference does, and before any device check,
+    so the message is the same on the CPU. (The sharded engine runs:
+    tests/test_torch_sharded_*.py.)"""
     g = build_csr(10, np.array([[0, 1], [1, 2]]))
     with pytest.raises(exc, match=match):
         CoreMaintainer.from_graph(g, device="cpu", **kw)

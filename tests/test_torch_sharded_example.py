@@ -1,0 +1,80 @@
+"""The port's streaming service, ``examples/stream_maintenance_torch.py``,
+under ``torchrun`` with 2 gloo ranks on the CPU (``--engine sharded``):
+the group taken from the environment, every rank replaying the stream,
+rank 0 alone printing and writing the checkpoints between barriers,
+``--verify``'s collectives on every rank, a simulated crash and the
+resume of every rank from the checkpoint (which both packages load on
+one device). ``--standalone`` rendezvous binds a free localhost port of
+its own, so parallel test workers do not collide."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLE = ROOT / "examples" / "stream_maintenance_torch.py"
+RANKS = 2
+SMALL = ["--device", "cpu", "--n", "200", "--m", "800", "--batches", "6",
+         "--batch-size", "32", "--engine", "sharded"]
+BZ_OK = "final cores verified against BZ ✓"
+
+
+def torchrun(tmp_path, *args, timeout=300):
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(RANKS), str(EXAMPLE), *SMALL, "--ckpt",
+         str(tmp_path / "ckpt.npz"), *args],
+        capture_output=True, text=True, timeout=timeout, cwd=tmp_path,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    return out.returncode, out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "single"])
+def test_torchrun_verify_passes(tmp_path, mixed):
+    rc, out, err = torchrun(tmp_path, "--verify",
+                            *(["--mixed"] if mixed else []))
+    assert rc == 0, err
+    assert f"engine=sharded kernel_backend=torch shards={RANKS}" in out
+    assert out.count("[batch ") == 6  # rank 0 alone prints
+    assert out.count(BZ_OK) == 1
+    assert not (tmp_path / "ckpt.npz").exists()  # cleaned on success
+
+
+def test_torchrun_weighted_window_verify(tmp_path):
+    rc, out, err = torchrun(tmp_path, "--weighted", "--window", "3",
+                            "--verify")
+    assert rc == 0, err
+    assert f"shards={RANKS}" in out
+    assert "final cores verified against the weighted peeling oracle ✓" in out
+
+
+def test_torchrun_crash_and_resume(tmp_path):
+    args = ("--mixed", "--verify", "--ckpt-every", "1")
+    rc, out, err = torchrun(tmp_path, *args, "--simulate-crash")
+    assert rc != 0, err  # every rank exits 17; torchrun reports a failure
+    assert "[crash]" in out and BZ_OK not in out
+    ckpt = tmp_path / "ckpt.npz"
+    assert ckpt.exists()
+    assert (tmp_path / "ckpt.npz.meta").read_text().strip() == "3"
+    assert not list(tmp_path.glob("*.tmp*"))  # rank 0 committed atomically
+    # the 2-shard checkpoint holds the global table: it loads on one
+    # device in both packages, and they agree
+    from repro_torch.core.api import CoreMaintainer
+    tm = CoreMaintainer.load(ckpt, device="cpu", engine="unified")
+    assert tm.capacity % RANKS == 0
+    pytest.importorskip("jax", reason="the reference package runs on jax")
+    from repro.core.api import CoreMaintainer as JaxMaintainer
+    jm = JaxMaintainer.load(str(ckpt), engine="unified")
+    np.testing.assert_array_equal(tm.cores(), jm.cores())
+    np.testing.assert_array_equal(tm.labels(), jm.labels())
+    assert tm.edge_slot == jm.edge_slot
+    rc, out, err = torchrun(tmp_path, *args)
+    assert rc == 0, err
+    assert out.count("[resume] restored checkpoint, continuing at batch 4") == 1
+    assert out.count("[batch ") == 2
+    assert BZ_OK in out
+    assert not ckpt.exists()
