@@ -4,7 +4,8 @@ card: builds the Hopper kernels from this checkout, checks each against
 its plain PyTorch version, and drives the main paths — one mixed batch
 at a time through ``CoreMaintainer.apply_batch`` on the unified engine,
 unweighted and weighted, on the host engine, and on the sharded engine
-over a world of one NCCL rank — at full width.
+(replicated and range-sharded vertex state) over a world of one NCCL
+rank — at full width.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -107,9 +108,16 @@ Phases:
      from ``vertex_layout.record_traffic``; at the end the cores against
      a fresh peel and the k-order certificate. Then the same for phase
      5's weighted batches from a copy of phase 5's starting state (the
-     ``wsum`` launches). The kernels line's coremaint rows gain
-     ``sharded_launches``, and the ``mcd_hi_dout`` / ``hi_dout`` rows'
-     ``launches`` are phase 8's.
+     ``wsum`` launches). Then both again with ``vertex_sharding=
+     "range"`` (owned slices, a halo working set a batch, the ring
+     placement; at one rank the halo is every referenced vertex), each
+     batch's wall also beside the replicated pass's, the collectives
+     with their reduce-scatter and ``ppermute`` counts, and each pass's
+     ``max_memory_allocated`` (peak statistics reset at its start).
+     NCCL's communicator is built by the maintainer's set-up
+     collective. The kernels line's coremaint rows gain
+     ``sharded_launches`` and ``range_launches``, and the
+     ``mcd_hi_dout`` / ``hi_dout`` rows' ``launches`` are phase 8's.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
@@ -643,13 +651,15 @@ def phase_kernels_weighted(device, m, iters: int) -> list:
     return rows[:1]
 
 
-def certificate_ok(m) -> bool:
+def certificate_ok(m, core=None, label=None) -> bool:
     """k-order certificate: same-level successors + higher-core
-    neighbours <= core for every vertex."""
+    neighbours <= core for every vertex (``core``/``label``: the
+    gathered state, where the maintainer holds an owned slice)."""
     from repro_torch.core import graph_ops as G
-    hi, dout = G.hi_and_dout_same(m.src, m.dst, m.valid, m.core, m.label,
-                                  m.n)
-    return bool(((hi + dout) <= m.core).all())
+    core = m.core if core is None else core
+    label = m.label if label is None else label
+    hi, dout = G.hi_and_dout_same(m.src, m.dst, m.valid, core, label, m.n)
+    return bool(((hi + dout) <= core).all())
 
 
 def snapshot(m) -> tuple:
@@ -1013,61 +1023,80 @@ def start_world():
     t0 = time.perf_counter()
     dist.init_process_group("nccl", store=store, rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=300))
-    dist.all_reduce(torch.zeros(1, device="cuda"))
-    torch.cuda.synchronize()
-    log(f"phase 8 world of one NCCL rank: init_process_group and the "
-        f"first all_reduce (communicator set-up) "
-        f"{time.perf_counter() - t0:.3f} s")
+    log(f"phase 8 world of one NCCL rank: init_process_group "
+        f"{time.perf_counter() - t0:.3f} s (the communicator is built at "
+        f"the first collective: the maintainer's set-up all-reduce)")
 
 
 def traffic_summary(log) -> dict:
-    """All-reduce and all-gather counts and bytes received, from the
-    records of ``vertex_layout.record_traffic``."""
-    red = [t for t in log if t.op.startswith(("psum", "pmax"))]
+    """Collective counts and bytes received, from the records of
+    ``vertex_layout.record_traffic``: all-reduces (``psum*``, ``pmax*``,
+    ``pmin*``; ``all_reduce_stat_bytes`` the replicated layout's
+    statistics), all-gathers (``gather_*``: the free-list, the halo
+    membership, the range layout's statistics), reduce-scatters (the
+    range layout's ``regather``) and the ring's ``ppermute`` (at one rank
+    the identity: recorded, nothing sent)."""
+    red = [t for t in log if t.op.startswith(("psum", "pmax", "pmin"))]
     gat = [t for t in log if t.op.startswith("gather")]
+    rs = [t for t in log if t.op == "regather"]
+    pp = [t for t in log if t.op == "ppermute"]
     return dict(all_reduce=len(red),
                 all_reduce_bytes=sum(t.recv_bytes for t in red),
                 all_reduce_stat_bytes=sum(t.recv_bytes for t in red
                                           if t.op == "psum"),
                 all_gather=len(gat),
-                all_gather_bytes=sum(t.recv_bytes for t in gat))
+                all_gather_bytes=sum(t.recv_bytes for t in gat),
+                reduce_scatter=len(rs),
+                reduce_scatter_bytes=sum(t.recv_bytes for t in rs),
+                ppermute=len(pp))
 
 
-def phase_sharded(device, mesh, start, batches, history, tag) -> dict:
+def phase_sharded(device, mesh, start, batches, history, tag,
+                  vertex_sharding="replicated", beside=None) -> tuple:
     """Phase 8: ``engine="sharded"`` (a world of one NCCL rank,
-    ``kernel_backend="cuda"``) from a device copy of the state phase 4
-    (``tag="4"``) or phase 5 (``tag="5"``) started from, through the same
-    batches: after every batch the cores, labels, ``n_inserted``,
-    ``n_removed``, the rounds and ``high_water`` equal that phase's, and
-    the slot table equals the unified engine's (one shard: ascending slot
-    ids, as there). Per batch the wall time beside that phase's, the
-    launches of each kernel instance and the collectives. Returns the
-    launch counts over the run."""
+    ``kernel_backend="cuda"``) with ``vertex_sharding`` from a device
+    copy of the state phase 4 (``tag="4"``) or phase 5 (``tag="5"``)
+    started from, through the same batches: after every batch the cores,
+    labels, ``n_inserted``, ``n_removed``, the rounds and ``high_water``
+    equal that phase's, and the slot table (and weights) equals the
+    unified engine's (one shard: ascending slot ids, as there). Per
+    batch the wall time beside that phase's (and beside the replicated
+    pass's, ``beside``), the launches of each kernel instance and the
+    collectives. At the end a fresh peel and the certificate
+    (unweighted). Returns the launch counts over the run and the walls."""
     import torch
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.core.vertex_layout import record_traffic
     from repro_torch.kernels import coremaint as K
 
-    where = f"phase 8 ({tag})"
+    where = f"phase 8 ({tag}, {vertex_sharding})"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    # copies: the sharded engine updates the slot table in place, and
+    # each pass starts from the same state
     m = CoreMaintainer(
-        n=start["n"], capacity=start["capacity"], src=start["src"],
-        dst=start["dst"], valid=start["valid"], n_edges=start["n_edges"],
-        core=start["core"], label=start["label"],
-        n_levels=start["n_levels"], engine="sharded", mesh=mesh,
+        n=start["n"], capacity=start["capacity"], src=start["src"].clone(),
+        dst=start["dst"].clone(), valid=start["valid"].clone(),
+        n_edges=start["n_edges"].clone(), core=start["core"].clone(),
+        label=start["label"].clone(), n_levels=start["n_levels"],
+        engine="sharded", mesh=mesh, vertex_sharding=vertex_sharding,
         kernel_backend="cuda", weighted=start["weighted"],
-        w=start.get("w"))
+        w=start["w"].clone() if start["weighted"] else None)
     sync(device)
     check(m.src.shape[0] == m.capacity and m._n_shards == 1,
           f"{where}: one shard holds the whole table")
-    log(f"{where} CoreMaintainer(engine='sharded', world of one NCCL rank, "
-        f"kernel_backend='cuda', weighted={m.weighted}): capacity="
-        f"{m.capacity} ({time.perf_counter() - t0:.1f} s)")
+    check(m.core.shape[0] == m.n and m._owned_vertices == (
+        vertex_sharding == "range"), f"{where}: vertex placement")
+    log(f"{where} CoreMaintainer(engine='sharded', vertex_sharding="
+        f"'{vertex_sharding}', world of one NCCL rank, kernel_backend="
+        f"'cuda', weighted={m.weighted}): capacity={m.capacity} "
+        f"({time.perf_counter() - t0:.3f} s, NCCL's communicator built "
+        f"by the maintainer's set-up collective on the first pass)")
     check(len(batches) == len(history), f"{where}: batch count")
     K.reset_launches()
-    total = dict(all_reduce=0, all_reduce_bytes=0, all_reduce_stat_bytes=0,
-                 all_gather=0, all_gather_bytes=0)
-    for (name, ins, iw, rm), h in zip(batches, history):
+    total = {}
+    walls = []
+    for i, ((name, ins, iw, rm), h) in enumerate(zip(batches, history)):
         before = dict(K.LAUNCHES)
         with record_traffic() as tlog:
             sync(device)
@@ -1076,6 +1105,7 @@ def phase_sharded(device, mesh, start, batches, history, tag) -> dict:
                                insert_weights=iw)
             sync(device)
             dt = time.perf_counter() - t1
+        walls.append(dt)
         check(np.array_equal(m.cores(), h["cores"]),
               f"{where} {name}: cores != phase {tag}")
         check(np.array_equal(m.labels(), h["labels"]),
@@ -1091,10 +1121,12 @@ def phase_sharded(device, mesh, start, batches, history, tag) -> dict:
         moved = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
                  if K.LAUNCHES[k] != before[k]}
         tr = traffic_summary(tlog)
-        for k in total:
-            total[k] += tr[k]
+        for k, v in tr.items():
+            total[k] = total.get(k, 0) + v
+        rep = ("" if beside is None else
+               f", replicated {beside[i]:.4f}, x{dt / beside[i]:.3f}")
         log(f"{where} {name}: wall_s={dt:.4f} (phase {tag} "
-            f"{h['wall_s']:.4f}, x{dt / h['wall_s']:.3f}) "
+            f"{h['wall_s']:.4f}, x{dt / h['wall_s']:.3f}{rep}) "
             f"remove_rounds={rounds[0]} insert_rounds={rounds[1]} "
             f"launches={json.dumps(moved)} collectives={json.dumps(tr)}")
     launches = dict(K.LAUNCHES)
@@ -1116,12 +1148,14 @@ def phase_sharded(device, mesh, start, batches, history, tag) -> dict:
             f"from_graph and the host mirror)")
     else:
         from repro_torch.core.decomposition import peel_decomposition
+        core, label = m._full(m.core), m._full(m.label)
         want, _ = peel_decomposition(m.src, m.dst, m.valid, m.n)
-        check(torch.equal(m.core, want), f"{where}: cores != fresh peel")
-        check(certificate_ok(m), f"{where}: k-order certificate violated")
+        check(torch.equal(core, want), f"{where}: cores != fresh peel")
+        check(certificate_ok(m, core, label),
+              f"{where}: k-order certificate violated")
         log(f"{where}: cores == fresh peel of the final live edge set, "
             f"certificate holds ({time.perf_counter() - t1:.1f} s)")
-    return launches
+    return launches, walls
 
 
 def _pad512(x: int) -> int:
@@ -1675,23 +1709,38 @@ def main() -> int:
                 ("burst insert", sample, None, None)]
     batches4 += [(f"mixed {ev.t}", ev.edges, None, ev.removals)
                  for ev in stream]
-    slaunches = phase_sharded(device, mesh, start4, batches4, history, "4")
+    batches5 = [(h["name"], h["ins"], h["iw"], h["rm"]) for h in whistory]
+    slaunches, swalls = phase_sharded(device, mesh, start4, batches4,
+                                      history, "4")
+    torch.cuda.empty_cache()
+    swlaunches, swwalls = phase_sharded(device, mesh, start5, batches5,
+                                        whistory, "5")
+    torch.cuda.empty_cache()
+    t8r = time.perf_counter()
+    rlaunches, _ = phase_sharded(device, mesh, start4, batches4, history,
+                                 "4", vertex_sharding="range",
+                                 beside=swalls)
     del start4, history, batches4
     torch.cuda.empty_cache()
-    batches5 = [(h["name"], h["ins"], h["iw"], h["rm"]) for h in whistory]
-    swlaunches = phase_sharded(device, mesh, start5, batches5, whistory, "5")
+    rwlaunches, _ = phase_sharded(device, mesh, start5, batches5, whistory,
+                                  "5", vertex_sharding="range",
+                                  beside=swwalls)
     del start5, whistory, batches5
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     for r in rows:
-        r["sharded_launches"] = (swlaunches if r["name"] == "coo_stat[wsum]"
+        weighted = r["name"] == "coo_stat[wsum]"
+        r["sharded_launches"] = (swlaunches if weighted
                                  else slaunches)[r["name"]]
+        r["range_launches"] = (rwlaunches if weighted
+                               else rlaunches)[r["name"]]
         if r["name"] in ("coo_stat[mcd_hi_dout]", "coo_stat[hi_dout]"):
             # their own counted path: the sharded engine's unfused rounds
             r["launches"] = slaunches[r["name"]]
             r["status"] = "on the sharded path (phase 8)"
     log(f"phase 8: {time.perf_counter() - t8:.1f} s (the smoke's growth "
-        f"for the sharded engine)")
+        f"for the sharded engine; the range passes "
+        f"{time.perf_counter() - t8r:.1f} s)")
 
     # ---- phases 6-7 set-up: the ER graph, its ELL matrix, its cores -----
     from repro_torch.graph.csr import ell_from_csr

@@ -17,12 +17,16 @@ checkpoints are the payload both packages read and write.
     python examples/stream_maintenance_torch.py --engine sharded --verify
     torchrun --nproc-per-node 4 examples/stream_maintenance_torch.py \
         --engine sharded --mixed --verify                # 4 cards, NCCL
+    torchrun --nproc-per-node 2 examples/stream_maintenance_torch.py \
+        --device cpu --engine sharded --vertex-sharding range --mixed --verify
 
-``--engine sharded`` runs the replicated sharded engine over
-``torch.distributed``: under ``torchrun`` every rank takes its group from
-the environment (one card a rank); run alone it initializes a world of
-one (gloo on ``--device cpu``, NCCL on the card). Every rank replays the
-same stream; rank 0 prints and writes the checkpoints.
+``--engine sharded`` runs the sharded engine over ``torch.distributed``:
+under ``torchrun`` every rank takes its group from the environment (one
+card a rank); run alone it initializes a world of one (gloo on
+``--device cpu``, NCCL on the card). Every rank replays the same stream;
+rank 0 prints and writes the checkpoints. ``--vertex-sharding range``
+keeps each rank's owned slice of the vertex state and a per-batch halo
+instead of the whole replicated state.
 """
 import argparse
 import datetime
@@ -70,6 +74,16 @@ def main():
              "torch.distributed world (torchrun, or a world of one)",
     )
     ap.add_argument(
+        "--vertex-sharding", default="replicated",
+        choices=("replicated", "range", "halo"),
+        help="where the per-vertex state lives under --engine sharded: "
+             "replicated (every rank holds all of it; one all-reduce a "
+             "statistic) or range (each rank owns a vertex range and a "
+             "per-batch halo; statistics complete by a bounded "
+             "all_gather, the halo refreshes by reduce_scatter); halo "
+             "(the 2-axis mesh) is ROADMAP Queue 1 B item 3",
+    )
+    ap.add_argument(
         "--weighted", action="store_true",
         help="maintain WEIGHTED coreness (weighted h-index, Zhou et al. "
              "WWW'21): random integer edge weights, verified against the "
@@ -93,6 +107,12 @@ def main():
         ap.error("--weighted needs a device engine (unified or sharded)")
     if args.window is not None and args.window < 1:
         ap.error("--window must be >= 1")
+    if args.vertex_sharding == "halo":
+        ap.error("--vertex-sharding halo (the 2-axis edge x vertex mesh) "
+                 "is ROADMAP Queue 1 B item 3; the port runs replicated "
+                 "and range")
+    if args.vertex_sharding != "replicated" and args.engine != "sharded":
+        ap.error("--vertex-sharding needs --engine sharded")
 
     if args.window is not None:
         # timestamped arrivals over a --batches-step horizon; the window
@@ -130,7 +150,8 @@ def main():
     start_batch = 0
     if os.path.exists(state_path) and os.path.exists(meta_path):
         m = CoreMaintainer.load(state_path, device=args.device,
-                                engine=args.engine, weighted=args.weighted)
+                                engine=args.engine, weighted=args.weighted,
+                                vertex_sharding=args.vertex_sharding)
         start_batch = int(open(meta_path).read().strip()) + 1
         say(f"[resume] restored checkpoint, continuing at batch "
             f"{start_batch}")
@@ -138,8 +159,10 @@ def main():
         m = CoreMaintainer.from_graph(
             g, capacity=8 * args.m, engine=args.engine,
             weighted=args.weighted, weights=w0, device=args.device,
+            vertex_sharding=args.vertex_sharding,
         )
-    shards = f" shards={m.mesh.size()}" if m.engine == "sharded" else ""
+    shards = (f" shards={m.mesh.size()} vertex_sharding={m.vertex_sharding}"
+              if m.engine == "sharded" else "")
     say(f"[device] {m.device} engine={m.engine} "
         f"kernel_backend={m.kernel_backend}{shards}")
 

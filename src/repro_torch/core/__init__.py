@@ -1,24 +1,28 @@
 """Parallel order-based core maintenance on PyTorch — the reference's
-``repro.core`` without its range and halo layouts: ``engine="unified"``
-(unweighted and weighted), ``engine="host"`` (the seed two-call path)
-and ``engine="sharded"`` with replicated vertex state over
-``torch.distributed``, with the applications of maintained cores.
+``repro.core`` without its 2-axis halo layout and sparse frontier
+exchange: ``engine="unified"`` (unweighted and weighted),
+``engine="host"`` (the seed two-call path) and ``engine="sharded"``
+over ``torch.distributed`` with replicated or range-sharded
+(``vertex_sharding="range"``) vertex state, with the applications of
+maintained cores.
 
 Layers:
 * ``oracle``        — sequential Simplified-Order / Traversal / BZ (numpy).
 * ``decomposition`` — data-parallel peeling + h-index fixpoint.
-* ``order``         — k-order label maintenance.
+* ``order``         — k-order label maintenance (and its ring variants
+                      over owned slices).
 * ``graph_ops``     — per-round statistics; the kernel dispatch point.
 * ``insert``        — batch-parallel order-based insertion maintenance
                       (and the host engine's ``insert_batch``).
 * ``remove``        — batch-parallel mcd-cascade removal maintenance
                       (and the host engine's ``remove_batch``).
 * ``engine``        — the mixed-batch program (unified, and each rank of
-                      the sharded engine).
+                      the sharded engine; its halo twin under "range").
 * ``sharded``       — the sharded engine's per-rank program and the
                       core-only sharded building blocks.
-* ``vertex_layout`` — the replicated vertex layout, its collectives and
-                      ``record_traffic``.
+* ``vertex_layout`` — the replicated and range (halo) vertex layouts,
+                      their collectives, ``record_traffic`` and
+                      ``record_shapes``.
 * ``weighted``      — weighted-coreness oracle and reference harness.
 * ``api``           — CoreMaintainer public interface (all three engines).
 * ``applications``  — k-core masks and subgraphs, sampling weights.

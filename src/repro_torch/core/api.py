@@ -1,7 +1,7 @@
 """CoreMaintainer — the public interface to parallel order-based core
 maintenance, on PyTorch.
 
-The port of the reference's ``core/api.py``, with three of its engines:
+The port of the reference's ``core/api.py``, with its three engines:
 
 * ``engine="unified"`` (the default): every batch (mixed insertions +
   removals) runs as one call of ``engine.apply_batch`` on the
@@ -13,18 +13,23 @@ The port of the reference's ``core/api.py``, with three of its engines:
   ``kernel_backend="cuda"`` and ``weighted=True`` raise with it).
   ``n_edges`` is the bump pointer, tombstones are reclaimed by
   ``_compact`` and the table grows by ``_grow``;
-* ``engine="sharded"`` with ``vertex_sharding="replicated"``: the
-  unified engine's program with the slot table sharded over a mesh's
-  ``"data"`` axis (core/sharded.py). The port is SPMD over
-  ``torch.distributed``: every rank constructs the same maintainer
-  (``mesh=`` a ``DeviceMesh``, by default ``launch.mesh.make_edge_mesh()``
-  over the initialized world) and calls ``apply_batch`` with the same
-  edits. Each rank keeps its ``capacity / world`` slots of the table;
-  ``core`` and ``label`` are replicated. ``freelist`` picks the slot
-  ranking (``"interleaved"`` | ``"hierarchical"``). The queries that
-  read the table (``edge_slot``, ``live_edges``, ``state``, ``save``)
-  are collectives: every rank calls them. ``vertex_sharding="range"`` /
-  ``"halo"`` are ROADMAP Queue 1 B items 2-4.
+* ``engine="sharded"``: the unified engine's program with the slot
+  table sharded over a mesh's ``"data"`` axis (core/sharded.py). The
+  port is SPMD over ``torch.distributed``: every rank constructs the
+  same maintainer (``mesh=`` a ``DeviceMesh``, by default
+  ``launch.mesh.make_edge_mesh()`` over the initialized world) and
+  calls ``apply_batch`` with the same edits. Each rank keeps its
+  ``capacity / world`` slots of the table. ``vertex_sharding`` picks
+  where ``core`` and ``label`` live: ``"replicated"`` (every rank holds
+  all ``n``) or ``"range"`` (rank ``r`` holds its owned slice
+  ``[r * n_owned, (r + 1) * n_owned)`` of the state padded with zero
+  phantom vertices to ``n_owned * world``; a batch adds only a bounded
+  halo working set). ``freelist`` picks the slot ranking
+  (``"interleaved"`` | ``"hierarchical"``). The queries that read the
+  table or, under ``"range"``, the vertex state (``edge_slot``,
+  ``live_edges``, ``cores``, ``labels``, ``order_lt``, ``state``,
+  ``save``) are collectives: every rank calls them. The 2-axis
+  ``"halo"`` layout is ROADMAP Queue 1 B item 3.
 
 Under the device engines the host keeps
 
@@ -67,6 +72,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..graph.csr import CSRGraph, build_csr
@@ -157,17 +163,17 @@ def _check_config(engine: str, kernel_backend: Optional[str],
             f"engine={engine!r}) — a silently ignored mesh would hide a "
             "misconfigured deployment"
         )
-    if vertex_sharding in ("range", "halo"):
-        if engine != "sharded":
-            raise ValueError(
-                f"vertex_sharding={vertex_sharding!r} needs "
-                "engine='sharded' (the other engines keep full vertex "
-                "state on one device)"
-            )
+    if vertex_sharding in ("range", "halo") and engine != "sharded":
+        raise ValueError(
+            f"vertex_sharding={vertex_sharding!r} needs "
+            "engine='sharded' (the other engines keep full vertex "
+            "state on one device)"
+        )
+    if vertex_sharding == "halo":
         raise NotImplementedError(
-            f"vertex_sharding={vertex_sharding!r} is ROADMAP Queue 1 B "
-            f"item {2 if vertex_sharding == 'range' else 4}; the port's "
-            "sharded engine runs vertex_sharding='replicated'"
+            "vertex_sharding='halo' (the 2-axis edge x vertex mesh) is "
+            "ROADMAP Queue 1 B item 3; the port's sharded engine runs "
+            "vertex_sharding='replicated' and 'range'"
         )
     if freelist == "hierarchical" and engine != "sharded":
         raise ValueError(
@@ -205,13 +211,13 @@ class CoreMaintainer:
     # int32 scalar: the live edge count (unified), the bump pointer =
     # slot high-water mark (host)
     n_edges: torch.Tensor
-    core: torch.Tensor     # int32 [n]
-    label: torch.Tensor    # int64 [n]
+    core: torch.Tensor     # int32 [n]; the owned [n_owned] under "range"
+    label: torch.Tensor    # int64 [n]; the owned [n_owned] under "range"
     n_levels: int
     engine: str = "unified"     # "unified" | "host" | "sharded"
     mesh: Optional[Any] = None  # sharded engine only: a DeviceMesh with
     #                             a "data" dimension
-    vertex_sharding: str = "replicated"  # "range" | "halo": ROADMAP B
+    vertex_sharding: str = "replicated"  # | "range" ("halo": ROADMAP B)
     freelist: str = "interleaved"        # "interleaved" | "hierarchical"
     kernel_backend: Optional[str] = None  # None: "cuda" on a card
     validate: bool = True  # raise on out-of-range endpoints (else mask)
@@ -227,6 +233,8 @@ class CoreMaintainer:
     _last_window: int = dataclasses.field(default=0, repr=False)
     # the table tensors hold this rank's shard (set by _place_sharded)
     _sharded_table: bool = dataclasses.field(default=False, repr=False)
+    # core/label hold this rank's owned slice (set by _place_vertices)
+    _owned_vertices: bool = dataclasses.field(default=False, repr=False)
     # sharded engine: the mesh's "data" process group, and this rank's
     # apply function for each per-shard window
     _group: Any = dataclasses.field(default=None, repr=False)
@@ -276,6 +284,11 @@ class CoreMaintainer:
                     "tensors, gloo meshes CPU tensors"
                 )
             self._group = axis_group(self.mesh, EDGE_AXIS)
+            # one small collective: NCCL builds its communicator at the
+            # first one, and that belongs to set-up, not the first batch
+            dist.all_reduce(torch.zeros(1, dtype=torch.int32, device=dev),
+                            group=self._group)
+            self._place_vertices()
             if self._n_shards > 1:
                 # one re-layout: pad capacity to an even shard split AND
                 # stride the live slots across the shards, so the
@@ -302,6 +315,51 @@ class CoreMaintainer:
     def _local_cap(self) -> int:
         """Slots per shard (== capacity off the sharded engine)."""
         return self.capacity // self._n_shards
+
+    @property
+    def _d_v(self) -> int:
+        """Vertex owner-shard count: the mesh size under
+        ``vertex_sharding="range"`` (the one shared axis), else 1."""
+        if self.engine != "sharded" or self.vertex_sharding != "range":
+            return 1
+        return self.mesh.size()
+
+    @property
+    def _n_vertex_pad(self) -> int:
+        """Vertex-state length under ``"range"``: ``n`` rounded up to an
+        owner-shard multiple (the phantom tail holds zeros, is never
+        referenced by an edge and is never returned)."""
+        return -(-self.n // self._d_v) * self._d_v
+
+    def _pad_vertex_state(self) -> None:
+        pad = self._n_vertex_pad - self.core.shape[0]
+        if pad > 0:
+            self.core = torch.cat([self.core, self.core.new_zeros(pad)])
+            self.label = torch.cat([self.label, self.label.new_zeros(pad)])
+
+    def _place_vertices(self) -> None:
+        """Under ``vertex_sharding="range"``: pad the vertex state to
+        ``n_owned * world`` and keep this rank's owned slice (once, at
+        construction: set-up may hold ``[n]`` for a moment, the batch
+        path never does)."""
+        if self.vertex_sharding != "range" or self._owned_vertices:
+            return
+        self._pad_vertex_state()
+        no = self._n_vertex_pad // self._d_v
+        r = axis_index(self._group)
+        self.core = self.core[r * no:(r + 1) * no].clone()
+        self.label = self.label[r * no:(r + 1) * no].clone()
+        self._owned_vertices = True
+
+    def _full(self, x: torch.Tensor) -> torch.Tensor:
+        """A vertex-state tensor (``core`` or ``label``) as the GLOBAL
+        ``[n]`` on the maintainer's device: itself, or under ``"range"``
+        one all_gather of the owned slices with the phantom tail
+        stripped (a collective: every rank calls it)."""
+        if not self._owned_vertices:
+            return x
+        return all_gather(x, self._group, "gather_vertex").reshape(-1)[
+            : self.n]
 
     def _place_sharded(self) -> None:
         """Keep this rank's block of the global slot table (rank r holds
@@ -506,16 +564,21 @@ class CoreMaintainer:
         return self.slot_cache
 
     def cores(self) -> np.ndarray:
-        return self.core.cpu().numpy()[: self.n]
+        """Core numbers ``[n]`` (gathered under ``"range"``: a
+        collective)."""
+        return self._full(self.core).cpu().numpy()[: self.n]
 
     def labels(self) -> np.ndarray:
-        return self.label.cpu().numpy()[: self.n]
+        """k-order labels ``[n]`` (gathered under ``"range"``: a
+        collective)."""
+        return self._full(self.label).cpu().numpy()[: self.n]
 
     def order_lt(self, u: int, v: int) -> bool:
-        cu, cv = int(self.core[u]), int(self.core[v])
+        core, label = self._full(self.core), self._full(self.label)
+        cu, cv = int(core[u]), int(core[v])
         if cu != cv:
             return cu < cv
-        return int(self.label[u]) < int(self.label[v])
+        return int(label[u]) < int(label[v])
 
     @property
     def live_edges(self) -> int:

@@ -28,9 +28,10 @@ def kcore_edge_mask(m: CoreMaintainer, k: int) -> torch.Tensor:
     rank calls it).
 
     The induced subgraph on {v: core(v) >= k} restricted to these edges
-    IS the k-core (maximality of the core decomposition)."""
+    IS the k-core (maximality of the core decomposition). Under
+    ``vertex_sharding="range"`` the cores are gathered too."""
     src, dst, valid, _ = m._table()
-    return _kcore_mask(m.core, src, dst, valid, k)
+    return _kcore_mask(m._full(m.core), src, dst, valid, k)
 
 
 def kcore_subgraph(m: CoreMaintainer, k: int
@@ -39,10 +40,11 @@ def kcore_subgraph(m: CoreMaintainer, k: int
     input. Under the sharded engine the whole k-core, on every rank (one
     gather of the table: a collective)."""
     src, dst, valid, _ = m._table()
-    mask = _kcore_mask(m.core, src, dst, valid, k).cpu().numpy()
+    core = m._full(m.core)
+    mask = _kcore_mask(core, src, dst, valid, k).cpu().numpy()
     src = src.cpu().numpy()[mask]
     dst = dst.cpu().numpy()[mask]
-    nodes = np.nonzero(m.core.cpu().numpy() >= k)[0]
+    nodes = np.nonzero(core.cpu().numpy() >= k)[0]
     return nodes, np.stack([src, dst], axis=1)
 
 

@@ -21,8 +21,13 @@ instead updates the slot table IN PLACE: ``apply_batch`` hands
 ``batch_program`` views of the active window, and the tombstones and
 slot writes land directly in the full-capacity tensors (no slice and
 splice). ``apply_batch_weighted`` does the same with the slot table's
-weight column. The halo program (``batch_program_halo``) is ROADMAP
-Queue 1 B items 2-4.
+weight column.
+
+``batch_program_halo`` is the same four phases for range-sharded vertex
+state (``vertex_sharding="range"``, core/sharded.py): ``core`` and
+``label`` are OWNED ``[n_owned]`` slices, and every edge pass indexes a
+bounded per-batch HALO working set (``build_halo_ids``,
+``vertex_layout.HaloSession``) instead of an ``[n]`` copy.
 """
 from __future__ import annotations
 
@@ -32,10 +37,14 @@ import torch
 
 from . import graph_ops as G
 from .insert import (freelist_alloc, promotion_fixpoint,
-                     weighted_promotion_fixpoint)
-from .order import maybe_renumber
-from .remove import removal_fixpoint, weighted_core_fixpoint_pass
-from .vertex_layout import ReplicatedVertices, psum
+                     promotion_fixpoint_halo, weighted_promotion_fixpoint,
+                     weighted_promotion_fixpoint_halo)
+from .order import maybe_renumber, maybe_renumber_ring
+from .remove import (removal_fixpoint, removal_fixpoint_halo,
+                     weighted_core_fixpoint_pass,
+                     weighted_core_fixpoint_pass_halo)
+from .vertex_layout import (HaloShardedVertices, ReplicatedVertices, _note,
+                            _rows, psum)
 
 _BIG = 1 << 62  # sentinel key: tombstones sort past every real key
 
@@ -244,6 +253,190 @@ def batch_program(src, dst, valid, core, label, n_edges,
         n_recycled=n_recycled,
         high_water=G.slot_high_water(valid, axis),
         max_frontier=torch.maximum(rm_fmax, ins_fmax),
+        n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    if weighted:
+        return src, dst, valid, w, core, label, n_edges, stats
+    return src, dst, valid, core, label, n_edges, stats
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length()
+
+
+def halo_cap_for(window: int, lanes_total: int, n_pad: int) -> int:
+    """Halo capacity of one batch: the pow2 bucket of the endpoint
+    candidates — 2 per windowed slot and 2 per batch lane (insert and
+    removal) — clamped to ``n_pad``. Deduplication only shrinks the
+    candidate set, so every vertex the batch can reference fits."""
+    return min(_pow2(2 * window + 2 * lanes_total), n_pad)
+
+
+def build_halo_ids(layout: HaloShardedVertices, src, dst, ins_u, ins_v,
+                   rm_u, rm_v, n: int) -> torch.Tensor:
+    """This rank's halo membership: the sorted unique global ids its
+    windowed slots or any batch lane reference, ``n_pad``-sentinel
+    padded to ``halo_cap_for``'s bucket (int32). Tombstoned slots' ids
+    are still valid vertex ids after the clip: they widen the halo,
+    never corrupt it (every statistic is gated by ``valid``)."""
+    cand = torch.cat([src, dst, ins_u, ins_v, rm_u, rm_v]).to(torch.int32)
+    cand = cand.clamp(0, n - 1)
+    hcap = halo_cap_for(int(src.shape[0]),
+                        int(ins_u.shape[0]) + int(rm_u.shape[0]),
+                        layout.n_pad)
+    ids = torch.unique(cand)  # sorted; at most n <= n_pad ids
+    _rows("build_halo_ids", hcap)
+    if ids.shape[0] >= hcap:
+        # hcap == n_pad here (the bucket was clamped): nothing to pad
+        return ids[:hcap].contiguous()
+    return torch.cat([ids, ids.new_full((hcap - ids.shape[0],),
+                                        layout.n_pad)])
+
+
+def batch_program_halo(src, dst, valid, core, label, n_edges,
+                       ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
+                       n: int, n_levels: int, table_axis,
+                       layout: HaloShardedVertices,
+                       freelist: str = "interleaved",
+                       kernel_backend: str = "torch",
+                       w: Optional[torch.Tensor] = None,
+                       ins_w: Optional[torch.Tensor] = None):
+    """``batch_program`` for range-sharded vertex state: the same four
+    phases over the same shard of the slot table (updated IN PLACE), with
+    ``core``/``label`` OWNED ``[n_owned]`` slices and every edge pass
+    over HALO positions (``session.locate``). ``table_axis`` is the group
+    the slots are sharded over (table verdicts: found flags, counts, the
+    free-list, the high-water mark); the layout's owner group completes
+    the vertex counts. Bit-identical cores, stats and k-order to
+    ``batch_program`` on the assembled state, and labels but after a
+    renumber with phantom vertices (which the ring ranks too). Returns ``(src, dst,
+    valid, core, label, n_edges, stats)``; weighted (``w``/``ins_w``)
+    ``(src, dst, valid, w, core, label, n_edges, stats)``.
+    """
+    weighted = w is not None
+    if weighted != (ins_w is not None):
+        raise ValueError("w and ins_w come together (weighted mode)")
+    capacity = src.shape[0]
+    dev = src.device
+
+    def allsum(x):  # table domain
+        return psum(x, table_axis, "psum_table")
+
+    def vsum(x):    # owned-vertex domain
+        return psum(x.reshape(1), layout.axis, "psum_vertex")[0]
+
+    hwm0 = G.slot_high_water(valid)
+    lookup = table_lookup(src, dst, valid, n)
+
+    # ---- 1. removals: vectorized slot lookup + tombstoning -------------
+    rlo = torch.minimum(rm_u, rm_v)
+    rhi = torch.maximum(rm_u, rm_v)
+    rm_ok = rm_ok & (rlo != rhi)
+    rfound, rslot = lookup(edge_key(rlo, rhi, n))
+    found = rfound & rm_ok
+    rm_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    rm_mask = rm_mask.scatter_reduce_(0, rslot, found.to(torch.int32),
+                                      "amax").bool()
+    valid &= ~rm_mask
+    n_removed = allsum(rm_mask.sum(dtype=torch.int32))
+
+    # ---- the halo working set: ONE membership gather and one bounded
+    # value regather a batch (weighted mode never reads a halo label)
+    halo_ids = build_halo_ids(layout, src, dst, ins_u, ins_v, rm_u, rm_v, n)
+    session = layout.bind(halo_ids)
+    core_h = session.gather_values(core)
+    label_h = None if weighted else session.gather_values(label)
+    src_h = session.locate(src)
+    dst_h = session.locate(dst)
+
+    core_pre_rm = core
+    if weighted:
+        core, core_h, rm_rounds, rm_fmax = weighted_core_fixpoint_pass_halo(
+            src_h, dst_h, valid, w, core, core_h, session,
+            kernel_backend=kernel_backend,
+        )
+    else:
+        (core, label, core_h, label_h, rm_rounds, hi, dout_same,
+         rm_fmax) = removal_fixpoint_halo(
+            src_h, dst_h, valid, core, label, core_h, label_h, session,
+            n_levels, kernel_backend=kernel_backend,
+        )
+    n_dropped = vsum((core != core_pre_rm).sum(dtype=torch.int32))
+
+    # ---- 2. insert dedup + membership against the post-removal table --
+    ilo, ihi, iok, key = batch_dedup(ins_u, ins_v, ins_ok, n)
+    ifound, islot_hit = lookup(key)
+    exists = allsum((ifound & ~rm_mask[islot_hit]).to(torch.int32)) > 0
+    iok = iok & ~exists
+
+    # ---- 3. slot allocation + table writes (as batch_program) ----------
+    lpos, iok = freelist_alloc(valid, iok, axis=table_axis,
+                               hierarchical=(freelist == "hierarchical"))
+    put = lpos < capacity
+    slots = lpos[put]
+    src[slots] = ilo[put].to(src.dtype)
+    dst[slots] = ihi[put].to(dst.dtype)
+    valid[slots] = True
+    if weighted:
+        w[slots] = ins_w[put].to(w.dtype)
+    n_inserted = iok.sum(dtype=torch.int32)
+    n_recycled = allsum((lpos < hwm0).sum(dtype=torch.int32))
+    n_edges = n_edges - n_removed + n_inserted
+
+    # the new slots reference only lane endpoints, already in the halo,
+    # so relocating the window is local compute
+    src_h = session.locate(src)
+    dst_h = session.locate(dst)
+
+    core_pre_ins = core
+    if weighted:
+        total_w = torch.where(iok, ins_w, torch.zeros_like(ins_w)).sum(
+            dtype=torch.int32)
+        core, core_h, ins_rounds, ins_fmax = weighted_promotion_fixpoint_halo(
+            src_h, dst_h, valid, w, core, core_h, total_w, session,
+            kernel_backend=kernel_backend,
+        )
+        v_plus = core != core_pre_ins
+    else:
+        u_pos = session.locate(ilo)
+        v_pos = session.locate(ihi)
+        # O(batch) delta on the owned (hi, dout_same): the predicate
+        # reads lane endpoints' halo values (the same on every rank), the
+        # scatter lands in each owner's slice
+        hi_u, hi_v, do_u, do_v = G.hi_dout_indicators(core_h, label_h,
+                                                      u_pos, v_pos, iok)
+        hi = layout.add_at(hi, ilo, hi_u.to(torch.int32))
+        hi = layout.add_at(hi, ihi, hi_v.to(torch.int32))
+        dout_same = layout.add_at(dout_same, ilo, do_u.to(torch.int32))
+        dout_same = layout.add_at(dout_same, ihi, do_v.to(torch.int32))
+        (core, label, core_h, label_h, ins_rounds, v_plus,
+         ins_fmax) = promotion_fixpoint_halo(
+            src_h, dst_h, valid, core, label, core_h, label_h,
+            ilo, ihi, u_pos, v_pos, iok, hi, dout_same, session, n_levels,
+            kernel_backend=kernel_backend,
+        )
+    n_promoted = vsum((core != core_pre_ins).sum(dtype=torch.int32))
+
+    # ---- 4. renumber gate (the ring relabel over the owner group) ------
+    force = ((n_dropped > 0) | (n_promoted > 0)) if weighted else None
+    label, renumbered = maybe_renumber_ring(
+        core, label, layout.axis, layout.n_shards, note=_note, force=force)
+
+    stats = BatchStats(
+        n_inserted=n_inserted,
+        n_removed=n_removed,
+        insert_rounds=ins_rounds,
+        n_promoted=n_promoted,
+        v_plus=vsum(v_plus.sum(dtype=torch.int32)),
+        remove_rounds=rm_rounds,
+        n_dropped=n_dropped,
+        renumbered=renumbered,
+        n_recycled=n_recycled,
+        high_water=G.slot_high_water(valid, table_axis),
+        # the per-round peaks were tracked locally: ONE pmax completes them
+        max_frontier=session.pmax_scalar(torch.maximum(rm_fmax, ins_fmax)),
+        # the dense halo regather never overflows (the sparse exchange,
+        # whose fallbacks this counts, is ROADMAP Queue 1 B item 4)
         n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
     )
     if weighted:

@@ -23,6 +23,13 @@ fixpoint started from ``core + total batch weight``. The host engine
 (``engine="host"``) inserts through ``write_edge_slots`` (bump
 allocation) and ``insert_batch``, in plain PyTorch as the reference's
 host path runs lax.
+
+The ``*_halo`` twins run the promotion rounds under range-sharded vertex
+state (``vertex_sharding="range"``): masks and decisions on OWNED
+slices, edge passes over the batch's HALO working set, each wave's and
+eviction round's mask regathered into the halo (one reduce_scatter),
+labels placed by ``order.place_block_ring``, and every loop condition
+an all-reduced verdict (``session.any_owned``).
 """
 from __future__ import annotations
 
@@ -32,9 +39,11 @@ import torch
 
 from . import graph_ops as G
 from ..kernels import coremaint
-from .order import place_block
-from .remove import weighted_core_fixpoint_pass
-from .vertex_layout import ReplicatedVertices, all_gather, axis_index
+from .order import place_block, place_block_ring
+from .remove import (weighted_core_fixpoint_pass,
+                     weighted_core_fixpoint_pass_halo)
+from .vertex_layout import (HaloSession, ReplicatedVertices, _note,
+                            all_gather, axis_index)
 
 
 class InsertStats(NamedTuple):
@@ -322,3 +331,154 @@ def weighted_promotion_fixpoint(src, dst, valid, w, core, total_w, n: int,
         src, dst, valid, w, core + total_w, n, layout=layout,
         kernel_backend=kernel_backend,
     )
+
+
+def weighted_promotion_fixpoint_halo(src_h, dst_h, valid, w, core_own,
+                                     core_h, total_w,
+                                     session: HaloSession,
+                                     kernel_backend: str = "torch"):
+    """``weighted_promotion_fixpoint`` on a halo working set: the bound
+    ``+ total_w`` is replicated, so the halo image stays exact by the
+    same local add (sentinel rows drift to ``total_w``; no valid edge
+    reads them). Returns ``(core_own, core_h, rounds, max_frontier)``."""
+    return weighted_core_fixpoint_pass_halo(
+        src_h, dst_h, valid, w, core_own + total_w, core_h + total_w,
+        session, kernel_backend=kernel_backend,
+    )
+
+
+def promotion_fixpoint_halo(src_h, dst_h, valid, core_own, label_own,
+                            core_h, label_h, new_src, new_dst, u_pos, v_pos,
+                            new_ok, hi, dout_same, session: HaloSession,
+                            n_levels: int, kernel_backend: str = "torch"):
+    """The promotion rounds on a halo working set — no ``[n]`` buffer.
+
+    The mirror of ``promotion_fixpoint`` with every mask and decision in
+    the OWNED domain and every edge-pass input in the HALO domain:
+    ``src_h``/``dst_h`` index the halo, ``u_pos``/``v_pos`` are the
+    pending lanes' halo positions (every lane endpoint is in every
+    rank's halo, so the root choice is the same everywhere) and
+    ``new_src``/``new_dst`` stay global ids for the owned seed scatter.
+    ``hi``/``dout_same`` are OWNED. The commits run
+    ``order.place_block_ring``, then the (core, label) halo regather.
+
+    Returns ``(core_own, label_own, core_h, label_h, rounds, v_plus_own,
+    max_frontier)``.
+    """
+    hcap = session.halo_cap
+    d_v = session.layout.n_shards
+    dev = core_own.device
+    zmask = torch.zeros(session.n_owned, dtype=torch.bool, device=dev)
+    promoted_prev = v_plus = zmask
+    fmax = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = 0
+    while True:
+        # SEED: roots of the pending edges at the current state
+        cu, cv = core_h[u_pos], core_h[v_pos]
+        e_src_lt = (cu < cv) | ((cu == cv)
+                                & (label_h[u_pos] < label_h[v_pos]))
+        root = torch.where(e_src_lt, new_src, new_dst)
+        seed = session.add_at(session.zeros(), root,
+                              new_ok.to(torch.int32)) > 0
+        viol = (hi + dout_same) > core_own
+        fmax = torch.maximum(fmax, session.frontier_peak(viol))
+        seed = seed | viol | promoted_prev
+
+        reach, passing, wave_fmax = _forward_reach_halo(
+            src_h, dst_h, valid, core_own, core_h, label_h, seed, hi,
+            dout_same, session, kernel_backend=kernel_backend,
+        )
+        cand0 = reach & passing
+        cand, evict_round, ev_fmax = _evict_fixpoint_halo(
+            src_h, dst_h, valid, core_own, core_h, cand0, hi, session,
+            kernel_backend=kernel_backend,
+        )
+        fmax = torch.maximum(fmax, torch.maximum(wave_fmax, ev_fmax))
+
+        new_core = core_own + cand.to(torch.int32)
+        # promoted -> head of O_{K+1} in old-label order
+        label_own = place_block_ring(
+            new_core, label_own, cand, at_head=True, n_levels=n_levels,
+            axis=session.axis, n_shards=d_v, note=_note,
+        )
+        # Backward-evicted -> tail of O_K in (eviction round, old label)
+        # order
+        evicted = cand0 & ~cand
+        label_own = place_block_ring(
+            new_core, label_own, evicted, at_head=False, n_levels=n_levels,
+            axis=session.axis, n_shards=d_v, round_key=evict_round,
+            note=_note,
+        )
+        # cand0 covers every vertex whose core or label just moved
+        core_h = session.gather_values(new_core)
+        label_h = session.gather_values(label_own)
+        new_hi, new_dout = G.hi_and_dout_same(
+            src_h, dst_h, valid, core_h, label_h, hcap, session,
+            backend=kernel_backend,
+        )
+        changed = session.any_owned((new_hi + new_dout) > new_core)
+        core_own = new_core
+        promoted_prev = cand
+        v_plus = v_plus | reach
+        hi, dout_same = new_hi, new_dout
+        rounds += 1
+        if not bool(changed):
+            break
+    rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
+    return core_own, label_own, core_h, label_h, rounds, v_plus, fmax
+
+
+def _forward_reach_halo(src_h, dst_h, valid, core_own, core_h, label_h,
+                        seed, hi, dout_same, session: HaloSession,
+                        kernel_backend: str = "torch"):
+    """``_forward_reach`` with OWNED loop masks and a halo regather of
+    the reached-and-passing frontier each wave. Returns ``(reach,
+    passing, max_frontier)``, owned masks."""
+    hcap = session.halo_cap
+    reach = seed
+    passing = (hi + dout_same) > core_own
+    fmax = session.frontier_peak(passing)
+    while True:
+        rp_h = session.gather_values((reach & passing).to(torch.int32)) > 0
+        din, grow = G.din_and_expand(src_h, dst_h, valid, core_h, label_h,
+                                     rp_h, hcap, session,
+                                     backend=kernel_backend)
+        new_passing = (hi + dout_same + din) > core_own
+        new_reach = reach | grow
+        fmax = torch.maximum(fmax, torch.maximum(
+            session.frontier_peak(new_passing), session.frontier_peak(grow)))
+        changed = session.any_owned((new_reach != reach)
+                                    | (new_passing != passing))
+        reach, passing = new_reach, new_passing
+        if not bool(changed):
+            return reach, passing, fmax
+
+
+def _evict_fixpoint_halo(src_h, dst_h, valid, core_own, core_h, cand, hi,
+                         session: HaloSession,
+                         kernel_backend: str = "torch"):
+    """``_evict_fixpoint`` with OWNED candidate masks and a halo regather
+    each round. Returns ``(cand, evict_round, max_frontier)``, owned
+    arrays."""
+    hcap = session.halo_cap
+    dev = core_own.device
+    evict_round = torch.zeros(session.n_owned, dtype=torch.int32, device=dev)
+    fmax = torch.zeros((), dtype=torch.int32, device=dev)
+    rnd = 1
+    while True:
+        cand_h = session.gather_values(cand.to(torch.int32)) > 0
+        support = hi + G.count_same_level_in(src_h, dst_h, valid, core_h,
+                                             cand_h, hcap, session,
+                                             backend=kernel_backend)
+        keep = support > core_own
+        fmax = torch.maximum(fmax, session.frontier_peak(keep))
+        new_cand = cand & keep
+        newly_evicted = cand & ~new_cand
+        evict_round = torch.where(newly_evicted,
+                                  torch.full_like(evict_round, rnd),
+                                  evict_round)
+        changed = session.any_owned(new_cand != cand)
+        cand = new_cand
+        rnd += 1
+        if not bool(changed):
+            return cand, evict_round, fmax

@@ -16,6 +16,12 @@ this round's droppers are placed at the tail of their new level.
 The weighted engine runs ``weighted_core_fixpoint_pass`` instead: the
 same decrease-only shape with the weighted h-index in place of mcd. The
 host engine (``engine="host"``) removes through ``remove_batch``.
+
+The ``*_halo`` twins run the same fixpoints under range-sharded vertex
+state (``vertex_sharding="range"``): decisions on OWNED slices, edge
+passes over the batch's HALO working set (``vertex_layout.HaloSession``),
+labels placed by ``order.place_block_ring``, and every loop condition an
+all-reduced verdict (``session.any_owned``).
 """
 from __future__ import annotations
 
@@ -25,8 +31,8 @@ import torch
 
 from . import graph_ops as G
 from ..kernels import coremaint
-from .order import place_block
-from .vertex_layout import ReplicatedVertices
+from .order import place_block, place_block_ring
+from .vertex_layout import HaloSession, ReplicatedVertices, _note
 
 
 class RemoveStats(NamedTuple):
@@ -158,3 +164,114 @@ def weighted_core_fixpoint_pass(
             break
     rounds = torch.tensor(rounds, dtype=torch.int32, device=core.device)
     return core, rounds, fmax
+
+
+def removal_fixpoint_halo(src_h, dst_h, valid, core_own, label_own, core_h,
+                          label_h, session: HaloSession, n_levels: int,
+                          kernel_backend: str = "torch"):
+    """The removal fixpoint on a halo working set — no ``[n]`` buffer.
+
+    ``src_h``/``dst_h`` are the windowed endpoints as HALO positions
+    (``session.locate``), ``core_h``/``label_h`` the current halo values,
+    ``core_own``/``label_own`` the owned slices. A round: one halo-domain
+    stats pass (``mcd_hi_dout``, kernel a on the card) completed into the
+    owned slice by the session, the drop decision there, the ring label
+    commit, the dense (core, label) halo regather, and the all-reduced
+    continue verdict. Every round runs the whole body, as the reference's
+    loop does (the last one commits nothing).
+
+    Returns ``(core_own, label_own, core_h, label_h, rounds, hi,
+    dout_same, max_frontier)``: ``hi``/``dout_same`` the terminating
+    round's OWNED promotion-seeding stats, ``max_frontier`` the LOCAL
+    per-round owned drop-count peak (the engine completes it).
+    """
+    hcap = session.halo_cap
+    d_v = session.layout.n_shards
+    dev = core_own.device
+    hi = dout_same = session.zeros()
+    fmax = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = 0
+    while True:
+        mcd, hi, dout_same = G.mcd_hi_dout(
+            src_h, dst_h, valid, core_h, label_h, hcap, session,
+            backend=kernel_backend,
+        )
+        drop = (mcd < core_own) & (core_own > 0)
+        fmax = torch.maximum(fmax, session.frontier_peak(drop))
+        new_core = core_own - drop.to(torch.int32)
+        label_own = place_block_ring(
+            new_core, label_own, drop, at_head=False, n_levels=n_levels,
+            axis=session.axis, n_shards=d_v, note=_note,
+        )
+        core_h = session.gather_values(new_core)
+        label_h = session.gather_values(label_own)
+        cont = session.any_owned(drop)
+        core_own = new_core
+        rounds += 1
+        if not bool(cont):
+            break
+    rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
+    return (core_own, label_own, core_h, label_h, rounds, hi, dout_same,
+            fmax)
+
+
+def _weighted_h_index_halo(src_h, dst_h, valid, w, core_own, core_h,
+                           session: HaloSession,
+                           kernel_backend: str = "torch"):
+    """Lockstep owned + halo weighted h-index bisection. ``(lo, hi)``
+    live in BOTH domains: the owned pair decides, the halo pair is its
+    exact image (each step's ``ok`` verdict is regathered as a dense
+    int32 mask). The continuation is an all-reduced verdict (one
+    ``any_owned`` a step), so every rank runs the same steps. Returns
+    ``(lo_own, lo_halo)``."""
+    hcap = session.halo_cap
+    lo_o = torch.zeros_like(core_own)
+    hi_o = torch.clamp(core_own, min=0)
+    lo_h = torch.zeros_like(core_h)
+    hi_h = torch.clamp(core_h, min=0)
+    cont = session.any_owned(lo_o < hi_o)
+    while bool(cont):
+        mid_o = torch.div(lo_o + hi_o + 1, 2, rounding_mode="floor")
+        mid_h = torch.div(lo_h + hi_h + 1, 2, rounding_mode="floor")
+        s = G.weighted_support(src_h, dst_h, valid, w, core_h, mid_h, hcap,
+                               session, backend=kernel_backend)
+        ok_o = s >= mid_o
+        ok_h = session.gather_values(ok_o.to(torch.int32)) > 0
+        lo_o = torch.where(ok_o, mid_o, lo_o)
+        hi_o = torch.where(ok_o, hi_o, mid_o - 1)
+        lo_h = torch.where(ok_h, mid_h, lo_h)
+        hi_h = torch.where(ok_h, hi_h, mid_h - 1)
+        cont = session.any_owned(lo_o < hi_o)
+    return lo_o, lo_h
+
+
+def weighted_core_fixpoint_pass_halo(src_h, dst_h, valid, w, core_own,
+                                     core_h, session: HaloSession,
+                                     kernel_backend: str = "torch"):
+    """``weighted_core_fixpoint_pass`` on a halo working set. The halo
+    core image stays exact without a refresh: each round commits ``min``
+    against the bisection result, whose halo copy is the owned one's
+    exact image, so the halo update is the same local ``min`` (sentinel
+    rows hold 0 and stay 0). Labels are frozen; the engine runs one ring
+    renumber a batch. Returns ``(core_own, core_h, rounds,
+    max_frontier)`` with ``max_frontier`` the LOCAL per-round owned
+    change-count peak."""
+    dev = core_own.device
+    fmax = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = 0
+    while True:
+        lo_o, lo_h = _weighted_h_index_halo(
+            src_h, dst_h, valid, w, core_own, core_h, session,
+            kernel_backend=kernel_backend,
+        )
+        new_o = torch.minimum(core_own, lo_o)
+        new_h = torch.minimum(core_h, lo_h)
+        changed = new_o < core_own
+        fmax = torch.maximum(fmax, session.frontier_peak(changed))
+        cont = session.any_owned(changed)
+        core_own, core_h = new_o, new_h
+        rounds += 1
+        if not bool(cont):
+            break
+    rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
+    return core_own, core_h, rounds, fmax

@@ -1,12 +1,23 @@
 """Multi-device core maintenance over ``torch.distributed``.
 
-The port of the reference's ``core/sharded.py`` for the replicated
-vertex layout. The edge slots are sharded across the mesh's ``"data"``
-axis: rank ``r`` holds slots ``[r * local_cap, (r + 1) * local_cap)`` of
-the table, at offset 0 of its own tensors. The vertex state (core,
-label) and every batch are replicated. Every neighborhood statistic is
-a local scatter over the rank's slots, completed by one
-``all_reduce(SUM)`` (core/vertex_layout.py).
+The port of the reference's ``core/sharded.py``. The edge slots are
+sharded across the mesh's ``"data"`` axis: rank ``r`` holds slots
+``[r * local_cap, (r + 1) * local_cap)`` of the table, at offset 0 of
+its own tensors, and every batch is replicated. The vertex state's home
+is the layout (core/vertex_layout.py):
+
+* ``vertex_sharding="replicated"`` — every rank keeps the full
+  ``[n]`` core and label; each neighborhood statistic is a local
+  scatter over the rank's slots completed by one ``all_reduce(SUM)``
+  (``engine.batch_program``);
+* ``vertex_sharding="range"`` — rank ``r`` OWNS the vertex range
+  ``[r * n_owned, (r + 1) * n_owned)`` on the same single axis and keeps
+  beyond it only a per-batch halo of the vertices its window and the
+  lanes reference (``engine.batch_program_halo``): statistics complete
+  by one bounded all_gather and an owner scatter, decisions run on
+  owned slices, labels place by the ring ``order.place_block_ring``.
+  Bit for bit the replicated engine's cores and k-order (and labels,
+  but after a renumber with phantom vertices padding ``n``).
 
 The reference runs ``engine.batch_program`` inside a ``shard_map``; the
 port is SPMD: every rank calls the function ``make_sharded_apply``
@@ -27,8 +38,9 @@ from typing import Tuple
 import torch
 
 from . import graph_ops as G
-from .engine import batch_program
-from .vertex_layout import ReplicatedVertices, axis_index, axis_size
+from .engine import batch_program, batch_program_halo
+from .vertex_layout import (ReplicatedVertices, axis_index, axis_size,
+                            make_layout)
 
 
 def axis_group(mesh, axis: str):
@@ -42,9 +54,9 @@ def axis_group(mesh, axis: str):
     if len(names) > 1:
         raise ValueError(
             f"a multi-axis mesh (axes {names}) needs vertex_sharding="
-            "'halo' (ROADMAP Queue 1 B item 4) — the replicated layout "
-            "completes statistics over ONE axis and would silently drop "
-            "the pure-edge partials"
+            "'halo' (ROADMAP Queue 1 B item 3) — the replicated and "
+            "range layouts complete statistics over ONE axis and would "
+            "silently drop the pure-edge partials"
         )
     return mesh.get_group(axis)
 
@@ -69,7 +81,9 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
     lane weights: ``(src, dst, valid, w, core, label, n_edges, ins_u,
     ins_v, ins_w, ins_ok, rm_u, rm_v, rm_ok) -> (src, dst, valid, w,
     core, label, n_edges, stats)``. Every rank calls it with the same
-    batch.
+    batch. Under ``vertex_sharding="range"`` ``core`` and ``label`` are
+    this rank's OWNED slices ``[n_owned]`` of the state padded to
+    ``n_owned * world`` (api.py pads and places them), and come back so.
 
     ``local_active`` is the per-shard window: every edge pass runs over
     the first ``local_active`` slots of the rank's shard (the host sizes
@@ -83,8 +97,8 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
     the statistics' implementation (``"torch"`` | ``"cuda"``: the
     hand-written kernels compute the LOCAL partials, which the layout
     completes as it does the torch path's, so the collectives are the
-    same). ``vertex_sharding="range"`` / ``"halo"`` and
-    ``frontier_exchange="sparse"`` are ROADMAP Queue 1 B items 2-4.
+    same). The 2-axis ``vertex_sharding="halo"`` is ROADMAP Queue 1 B
+    item 3 and ``frontier_exchange="sparse"`` item 4.
     """
     group = axis_group(mesh, axis)
     if frontier_exchange not in ("bitmask", "sparse"):
@@ -92,20 +106,30 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
             f"unknown frontier_exchange {frontier_exchange!r} "
             "(expected 'bitmask' or 'sparse')"
         )
-    if vertex_sharding in ("range", "halo"):
+    if vertex_sharding == "halo":
         raise NotImplementedError(
-            f"vertex_sharding={vertex_sharding!r} is ROADMAP Queue 1 B "
-            f"item {2 if vertex_sharding == 'range' else 4}; the port has "
-            "vertex_sharding='replicated'"
+            "vertex_sharding='halo' (the 2-axis edge x vertex mesh) is "
+            "ROADMAP Queue 1 B item 3; the port has 'replicated' and "
+            "'range'"
         )
-    if vertex_sharding != "replicated":
+    if vertex_sharding not in ("replicated", "range"):
         raise ValueError(f"unknown vertex_sharding {vertex_sharding!r}")
     if freelist not in ("interleaved", "hierarchical"):
         raise ValueError(f"unknown freelist {freelist!r}")
-    if frontier_exchange == "sparse":
+    if frontier_exchange == "sparse" and vertex_sharding == "replicated":
         raise ValueError(
             "frontier_exchange='sparse' needs vertex_sharding='range' or "
             "'halo' (the replicated layout exchanges no frontier masks)"
+        )
+    if frontier_exchange == "sparse" and frontier_cap < 1:
+        raise ValueError(
+            f"frontier_exchange='sparse' needs frontier_cap >= 1, got "
+            f"{frontier_cap}"
+        )
+    if frontier_exchange == "sparse":
+        raise NotImplementedError(
+            "frontier_exchange='sparse' is ROADMAP Queue 1 B item 4; the "
+            "range engine runs the dense halo regather"
         )
     if frontier_cap != 0:
         raise ValueError(
@@ -128,23 +152,35 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
             )
         return local_active
 
+    def _program(*args, **kw):
+        """The program body for this layout: the replicated one, or the
+        halo one on OWNED core/label (``args[3]``, whose device the
+        layout's zeros take) with the same group as the table axis (the
+        shared single axis)."""
+        if vertex_sharding == "replicated":
+            return batch_program(*args, axis=group, freelist=freelist,
+                                 kernel_backend=kernel_backend, **kw)
+        layout = make_layout("range", n, group, axis_size(group),
+                             device=args[3].device)
+        return batch_program_halo(*args, table_axis=group, layout=layout,
+                                  freelist=freelist,
+                                  kernel_backend=kernel_backend, **kw)
+
     def apply(src, dst, valid, core, label, n_edges,
               ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok):
         w = _win(src.shape[0])
-        _, _, _, core, label, n_edges, stats = batch_program(
+        _, _, _, core, label, n_edges, stats = _program(
             src[:w], dst[:w], valid[:w], core, label, n_edges,
             ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok, n, n_levels,
-            axis=group, freelist=freelist, kernel_backend=kernel_backend,
         )
         return src, dst, valid, core, label, n_edges, stats
 
     def apply_weighted(src, dst, valid, ew, core, label, n_edges,
                        ins_u, ins_v, ins_w, ins_ok, rm_u, rm_v, rm_ok):
         w = _win(src.shape[0])
-        _, _, _, _, core, label, n_edges, stats = batch_program(
+        _, _, _, _, core, label, n_edges, stats = _program(
             src[:w], dst[:w], valid[:w], core, label, n_edges,
             ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok, n, n_levels,
-            axis=group, freelist=freelist, kernel_backend=kernel_backend,
             w=ew[:w], ins_w=ins_w,
         )
         return src, dst, valid, ew, core, label, n_edges, stats

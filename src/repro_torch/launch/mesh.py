@@ -13,13 +13,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-# The axis that carries the vertex OWNER sharding of the halo layouts
-# (ROADMAP Queue 1 B items 2-4); the replicated engine shards its edge
-# slots over it.
+# The axis that carries the vertex OWNER sharding of the range layout
+# (and the edge slots of every sharded engine).
 VERTEX_AXIS = "data"
 
 # The pure-edge axis of the 2-axis factorization (ROADMAP Queue 1 B
-# item 4).
+# item 3).
 EDGE_SHARD_AXIS = "edge"
 
 
@@ -53,12 +52,13 @@ def make_edge_vertex_mesh(n_devices=None, mesh_shape=None,
                           axis: str = VERTEX_AXIS,
                           edge_axis: str = EDGE_SHARD_AXIS):
     """Mesh for the vertex layouts. ``mesh_shape=None`` is the single
-    shared axis (``make_edge_mesh``); the 2-axis ``(d_e, d_v)`` edge x
-    vertex factorization comes with the halo layout, ROADMAP Queue 1 B
-    item 4."""
+    shared axis (``make_edge_mesh``), the mesh of
+    ``vertex_sharding="range"``; the 2-axis ``(d_e, d_v)`` edge x vertex
+    factorization comes with the halo layout, ROADMAP Queue 1 B item
+    3."""
     if mesh_shape is not None:
         raise NotImplementedError(
             "the 2-axis edge x vertex mesh (mesh_shape) comes with the "
-            "halo layout, ROADMAP Queue 1 B item 4"
+            "halo layout, ROADMAP Queue 1 B item 3"
         )
     return make_edge_mesh(n_devices, axis)

@@ -5,8 +5,8 @@ each test), the unified maintainer, unweighted and weighted, with
 ``kernel_backend="cuda"`` against ``kernel_backend="torch"`` and the
 BZ / weighted peeling oracle, batch by batch, the host engine on the
 card against the unified engine and against itself on the CPU, the
-sharded engine on a world of one NCCL rank against the torch backend and
-the unified engine, and DeepFM serving with the FM kernel against its
+sharded engine (replicated and range vertex state) on a world of one
+NCCL rank against the torch backend and the unified engine, and DeepFM serving with the FM kernel against its
 plain branch.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA
@@ -325,27 +325,22 @@ def nccl_mesh(tmp_path_factory):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("weighted", [False, True],
-                         ids=["unit", "weighted"])
-@pytest.mark.parametrize("graph", ["er", "rmat"])
-@pytest.mark.parametrize("stream", ["mixed", "churn"])
-def test_sharded_world_of_one_cuda_matches_torch(nccl_mesh, graph, stream,
-                                                 weighted):
-    """``engine="sharded"`` on a world of one NCCL rank: the kernel
-    backend equals the torch backend batch by batch (stats, cores,
-    labels, slot table, weights), and the cores and labels equal the
-    unified engine's; kernel a's unit statistics (d when weighted) run,
-    the fused decisions b and c never do."""
-    g = (erdos_renyi(500, 2500, seed=3) if graph == "er"
-         else rmat(9, 3000, seed=3))
+def _world_of_one(mesh, graph, stream, weighted, vertex_sharding):
+    """The sharded engine on a world of one NCCL rank with
+    ``kernel_backend="cuda"`` against the torch backend, batch by batch
+    (stats, cores, labels, slot table, weights), and its cores and
+    labels against the unified engine's. Returns the launches."""
+    g = {"er": lambda: erdos_renyi(500, 2500, seed=3),
+         "rmat": lambda: rmat(9, 3000, seed=3),
+         "sparse": lambda: erdos_renyi(4096, 300, seed=3)}[graph]()
     rng = np.random.default_rng(5)
     w0 = rng.integers(1, 6, g.m) if weighted else None
     events = (mixed_stream(g, 5, 80, seed=4) if stream == "mixed"
               else churn_stream(g, 5, 80, seed=4))
     kw = dict(weighted=weighted, weights=w0)
-    a = CoreMaintainer.from_graph(g, engine="sharded", mesh=nccl_mesh, **kw)
-    b = CoreMaintainer.from_graph(g, engine="sharded", mesh=nccl_mesh,
-                                  kernel_backend="torch", **kw)
+    sk = dict(engine="sharded", mesh=mesh, vertex_sharding=vertex_sharding)
+    a = CoreMaintainer.from_graph(g, **sk, **kw)
+    b = CoreMaintainer.from_graph(g, **sk, kernel_backend="torch", **kw)
     u = CoreMaintainer.from_graph(g, kernel_backend="torch", **kw)
     assert (a.device.type, a.kernel_backend) == ("cuda", "cuda")
     launched = dict.fromkeys(K.LAUNCHES, 0)
@@ -374,6 +369,34 @@ def test_sharded_world_of_one_cuda_matches_torch(nccl_mesh, graph, stream,
              "coo_stat[same_in]"))
     for k in want:
         assert launched[k] > 0, k
+    return launched
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unit", "weighted"])
+@pytest.mark.parametrize("graph", ["er", "rmat"])
+@pytest.mark.parametrize("stream", ["mixed", "churn"])
+def test_sharded_world_of_one_cuda_matches_torch(nccl_mesh, graph, stream,
+                                                 weighted):
+    """``engine="sharded"`` on a world of one NCCL rank: the kernel
+    backend equals the torch backend batch by batch (stats, cores,
+    labels, slot table, weights), and the cores and labels equal the
+    unified engine's; kernel a's unit statistics (d when weighted) run,
+    the fused decisions b and c never do."""
+    _world_of_one(nccl_mesh, graph, stream, weighted, "replicated")
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unit", "weighted"])
+@pytest.mark.parametrize("graph", ["er", "rmat", "sparse"])
+@pytest.mark.parametrize("stream", ["mixed", "churn"])
+def test_range_world_of_one_cuda_matches_torch(nccl_mesh, graph, stream,
+                                               weighted):
+    """``vertex_sharding="range"`` on a world of one NCCL rank, as the
+    replicated test above: kernels a (d weighted) run at halo width
+    (``n = halo_cap``, below n on the sparse graph), b and c never, and
+    everything equals the torch backend and the unified engine."""
+    _world_of_one(nccl_mesh, graph, stream, weighted, "range")
 
 
 def test_cpu_tensors_never_launch_wsum():

@@ -44,6 +44,25 @@ def test_torchrun_verify_passes(tmp_path, mixed):
     assert not (tmp_path / "ckpt.npz").exists()  # cleaned on success
 
 
+def test_torchrun_range_mixed_verify(tmp_path):
+    """``--vertex-sharding range``: each rank owns half the vertices and
+    a per-batch halo; the gathered cores equal BZ."""
+    rc, out, err = torchrun(tmp_path, "--vertex-sharding", "range",
+                            "--mixed", "--verify")
+    assert rc == 0, err
+    assert f"shards={RANKS} vertex_sharding=range" in out
+    assert out.count("[batch ") == 6
+    assert out.count(BZ_OK) == 1
+
+
+def test_halo_vertex_sharding_is_refused_by_name(tmp_path):
+    out = subprocess.run(
+        [sys.executable, str(EXAMPLE), *SMALL, "--vertex-sharding", "halo"],
+        capture_output=True, text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode == 2
+    assert "ROADMAP Queue 1 B item 3" in out.stderr
+
+
 def test_torchrun_weighted_window_verify(tmp_path):
     rc, out, err = torchrun(tmp_path, "--weighted", "--window", "3",
                             "--verify")
