@@ -115,9 +115,22 @@ Phases:
      with their reduce-scatter and ``ppermute`` counts, and each pass's
      ``max_memory_allocated`` (peak statistics reset at its start).
      NCCL's communicator is built by the maintainer's set-up
-     collective. The kernels line's coremaint rows gain
-     ``sharded_launches`` and ``range_launches``, and the
-     ``mcd_hi_dout`` / ``hi_dout`` rows' ``launches`` are phase 8's.
+     collective. Then three more passes, each beside the range pass of
+     its phase: (i) phase 4's batches on ``vertex_sharding="halo"`` over
+     the 2-axis ``(1, 1)`` mesh (``make_edge_vertex_mesh``: the
+     ``psum_edge`` all-reduce over a one-rank edge group, the table
+     group) with ``frontier_exchange="sparse"`` and the planned cap;
+     (ii) phase 5's weighted batches on the same mesh, dense (the
+     weighted fixpoints never refresh sparsely); (iii) phase 4's batches
+     on ``"range"`` with the sparse exchange at a pinned cap, a power of
+     two between the smallest and the largest per-batch
+     ``max_frontier`` of the range pass, which must overflow in some
+     batch and not on every refresh of some batch. Each prints per batch
+     ``n_overflow``, ``max_frontier`` and the ``psum_edge`` /
+     ``gather_frontier`` counts and bytes. The kernels line's coremaint
+     rows gain ``sharded_launches``, ``range_launches`` and
+     ``halo_launches`` (passes i / ii), and the ``mcd_hi_dout`` /
+     ``hi_dout`` rows' ``launches`` are phase 8's.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
@@ -1035,7 +1048,9 @@ def traffic_summary(log) -> dict:
     statistics), all-gathers (``gather_*``: the free-list, the halo
     membership, the range layout's statistics), reduce-scatters (the
     range layout's ``regather``) and the ring's ``ppermute`` (at one rank
-    the identity: recorded, nothing sent)."""
+    the identity: recorded, nothing sent); apart, the halo layout's
+    ``psum_edge`` all-reduces (the 2-axis mesh's edge group) and the
+    sparse exchange's ``gather_frontier`` all-gathers."""
     red = [t for t in log if t.op.startswith(("psum", "pmax", "pmin"))]
     gat = [t for t in log if t.op.startswith("gather")]
     rs = [t for t in log if t.op == "regather"]
@@ -1048,11 +1063,16 @@ def traffic_summary(log) -> dict:
                 all_gather_bytes=sum(t.recv_bytes for t in gat),
                 reduce_scatter=len(rs),
                 reduce_scatter_bytes=sum(t.recv_bytes for t in rs),
-                ppermute=len(pp))
+                ppermute=len(pp),
+                **{f"{op}{key}": fn([t for t in log if t.op == op])
+                   for op in ("psum_edge", "gather_frontier")
+                   for key, fn in (("", len), ("_bytes", lambda x: sum(
+                       t.recv_bytes for t in x)))})
 
 
 def phase_sharded(device, mesh, start, batches, history, tag,
-                  vertex_sharding="replicated", beside=None) -> tuple:
+                  vertex_sharding="replicated", beside=None,
+                  **exchange) -> tuple:
     """Phase 8: ``engine="sharded"`` (a world of one NCCL rank,
     ``kernel_backend="cuda"``) with ``vertex_sharding`` from a device
     copy of the state phase 4 (``tag="4"``) or phase 5 (``tag="5"``)
@@ -1060,16 +1080,23 @@ def phase_sharded(device, mesh, start, batches, history, tag,
     labels, ``n_inserted``, ``n_removed``, the rounds and ``high_water``
     equal that phase's, and the slot table (and weights) equals the
     unified engine's (one shard: ascending slot ids, as there). Per
-    batch the wall time beside that phase's (and beside the replicated
-    pass's, ``beside``), the launches of each kernel instance and the
-    collectives. At the end a fresh peel and the certificate
-    (unweighted). Returns the launch counts over the run and the walls."""
+    batch the wall time beside that phase's (and beside an earlier
+    pass's, ``beside = (name, walls)``), the launches of each kernel
+    instance, the collectives, ``n_overflow`` and ``max_frontier``, and
+    with a pinned sparse cap the refreshes (one id payload each). At the
+    end a fresh peel and the certificate (unweighted). ``exchange``: the
+    ``frontier_exchange`` / ``frontier_cap`` fields. Returns the launch
+    counts over the run, the walls and per batch ``(max_frontier,
+    n_overflow, refreshes)`` (refreshes None unless the cap is
+    pinned)."""
     import torch
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.core.vertex_layout import record_traffic
     from repro_torch.kernels import coremaint as K
 
-    where = f"phase 8 ({tag}, {vertex_sharding})"
+    cap = exchange.get("frontier_cap", 0)
+    where = f"phase 8 ({tag}, {vertex_sharding}" + (
+        f", sparse cap {cap or 'planned'})" if exchange else ")")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     # copies: the sharded engine updates the slot table in place, and
@@ -1081,12 +1108,16 @@ def phase_sharded(device, mesh, start, batches, history, tag,
         label=start["label"].clone(), n_levels=start["n_levels"],
         engine="sharded", mesh=mesh, vertex_sharding=vertex_sharding,
         kernel_backend="cuda", weighted=start["weighted"],
-        w=start["w"].clone() if start["weighted"] else None)
+        w=start["w"].clone() if start["weighted"] else None, **exchange)
     sync(device)
     check(m.src.shape[0] == m.capacity and m._n_shards == 1,
           f"{where}: one shard holds the whole table")
     check(m.core.shape[0] == m.n and m._owned_vertices == (
-        vertex_sharding == "range"), f"{where}: vertex placement")
+        vertex_sharding in ("range", "halo")), f"{where}: vertex placement")
+    if vertex_sharding == "halo":
+        check(m.mesh.mesh_dim_names == ("edge", "data")
+              and m._table_group is not None and m._d_v == 1,
+              f"{where}: the 2-axis (1, 1) mesh and its table group")
     log(f"{where} CoreMaintainer(engine='sharded', vertex_sharding="
         f"'{vertex_sharding}', world of one NCCL rank, kernel_backend="
         f"'cuda', weighted={m.weighted}): capacity={m.capacity} "
@@ -1095,7 +1126,7 @@ def phase_sharded(device, mesh, start, batches, history, tag,
     check(len(batches) == len(history), f"{where}: batch count")
     K.reset_launches()
     total = {}
-    walls = []
+    walls, fronts = [], []
     for i, ((name, ins, iw, rm), h) in enumerate(zip(batches, history)):
         before = dict(K.LAUNCHES)
         with record_traffic() as tlog:
@@ -1123,11 +1154,20 @@ def phase_sharded(device, mesh, start, batches, history, tag,
         tr = traffic_summary(tlog)
         for k, v in tr.items():
             total[k] = total.get(k, 0) + v
+        # a refresh sends one count-prefixed id payload of cap + 1 words
+        refreshes = (sum(t.op == "gather_frontier"
+                         and t.recv_bytes == (cap + 1) * 4 for t in tlog)
+                     if cap else None)
+        fronts.append((int(st.max_frontier), int(st.n_overflow),
+                       refreshes))
         rep = ("" if beside is None else
-               f", replicated {beside[i]:.4f}, x{dt / beside[i]:.3f}")
+               f", {beside[0]} {beside[1][i]:.4f}, "
+               f"x{dt / beside[1][i]:.3f}")
         log(f"{where} {name}: wall_s={dt:.4f} (phase {tag} "
             f"{h['wall_s']:.4f}, x{dt / h['wall_s']:.3f}{rep}) "
             f"remove_rounds={rounds[0]} insert_rounds={rounds[1]} "
+            f"max_frontier={fronts[-1][0]} n_overflow={fronts[-1][1]} "
+            f"refreshes={refreshes} "
             f"launches={json.dumps(moved)} collectives={json.dumps(tr)}")
     launches = dict(K.LAUNCHES)
     for k in ("fused_removal_round", "fused_promotion_stats"):
@@ -1155,7 +1195,107 @@ def phase_sharded(device, mesh, start, batches, history, tag,
               f"{where}: k-order certificate violated")
         log(f"{where}: cores == fresh peel of the final live edge set, "
             f"certificate holds ({time.perf_counter() - t1:.1f} s)")
-    return launches, walls
+    return launches, walls, fronts
+
+
+def pinned_cap(fronts) -> int:
+    """Phase 8 pass iii's sparse cap: the largest power of two below the
+    largest per-batch ``max_frontier`` of the range pass (a refreshed
+    count: the burst removal's peak is its largest drop set), which must
+    not fall below the smallest."""
+    peaks = [f for f, _, _ in fronts]
+    cap = 1 << max(max(peaks) - 1, 1).bit_length() - 1
+    check(min(peaks) <= cap < max(peaks),
+          f"phase 8: no power of two between the range pass's per-batch "
+          f"max_frontier {min(peaks)} and {max(peaks)}")
+    return cap
+
+
+def phase_8(device, sample, stream, kept, rows) -> None:
+    """Phase 8 on an initialized world of one rank: the replicated, range
+    and halo passes over phases 4 and 5's batches (``sample``: the burst,
+    ``stream``: the mixed batches) from the start states and histories
+    in ``kept`` (popped, so each is freed once its passes are done);
+    each coremaint row of ``rows`` gains its launches on the passes."""
+    import torch
+    from repro_torch.launch.mesh import make_edge_mesh, make_edge_vertex_mesh
+    t8 = time.perf_counter()
+    mesh = make_edge_mesh()
+    start4, history = kept.pop("start4"), kept.pop("history")
+    start5, whistory = kept.pop("start5"), kept.pop("whistory")
+    batches4 = [("burst remove", None, None, sample),
+                ("burst insert", sample, None, None)]
+    batches4 += [(f"mixed {ev.t}", ev.edges, None, ev.removals)
+                 for ev in stream]
+    batches5 = [(h["name"], h["ins"], h["iw"], h["rm"]) for h in whistory]
+    slaunches, swalls, _ = phase_sharded(device, mesh, start4, batches4,
+                                         history, "4")
+    torch.cuda.empty_cache()
+    swlaunches, swwalls, _ = phase_sharded(device, mesh, start5, batches5,
+                                           whistory, "5")
+    torch.cuda.empty_cache()
+    t8r = time.perf_counter()
+    rlaunches, rwalls, rfronts = phase_sharded(
+        device, mesh, start4, batches4, history, "4",
+        vertex_sharding="range", beside=("replicated", swalls))
+    torch.cuda.empty_cache()
+    t8h = time.perf_counter()
+    mesh2 = make_edge_vertex_mesh(mesh_shape=(1, 1))
+    # pass i: the 2-axis mesh with the planned sparse cap
+    hlaunches, _, _ = phase_sharded(
+        device, mesh2, start4, batches4, history, "4",
+        vertex_sharding="halo", beside=("range", rwalls),
+        frontier_exchange="sparse", frontier_cap=0)
+    torch.cuda.empty_cache()
+    # pass iii: the range engine, sparse at a pinned cap that overflows
+    # in some batches
+    cap = pinned_cap(rfronts)
+    log(f"phase 8 pass iii: frontier_cap={cap} between the range pass's "
+        f"per-batch max_frontier {[f for f, _, _ in rfronts]}")
+    _, _, sfronts = phase_sharded(
+        device, mesh, start4, batches4, history, "4",
+        vertex_sharding="range", beside=("range", rwalls),
+        frontier_exchange="sparse", frontier_cap=cap)
+    check(any(ovf > 0 for _, ovf, _ in sfronts),
+          "phase 8 pass iii: no sparse refresh overflowed the cap")
+    check(any(ovf < refreshes for _, ovf, refreshes in sfronts),
+          "phase 8 pass iii: every sparse refresh of every batch "
+          "overflowed")
+    log(f"phase 8 pass iii: (max_frontier, n_overflow, refreshes) a batch "
+        f"{sfronts}: both arms ran")
+    del start4, history, batches4
+    torch.cuda.empty_cache()
+    t8w = time.perf_counter()
+    rwlaunches, rwwalls, _ = phase_sharded(
+        device, mesh, start5, batches5, whistory, "5",
+        vertex_sharding="range", beside=("replicated", swwalls))
+    torch.cuda.empty_cache()
+    t8hw = time.perf_counter()
+    # pass ii: the weighted engine on the 2-axis mesh, dense
+    hwlaunches, _, _ = phase_sharded(
+        device, mesh2, start5, batches5, whistory, "5",
+        vertex_sharding="halo", beside=("range", rwwalls))
+    t8e = time.perf_counter()
+    del start5, whistory, batches5
+    torch.cuda.empty_cache()
+    for r in rows:
+        weighted = r["name"] == "coo_stat[wsum]"
+        r["sharded_launches"] = (swlaunches if weighted
+                                 else slaunches)[r["name"]]
+        r["range_launches"] = (rwlaunches if weighted
+                               else rlaunches)[r["name"]]
+        r["halo_launches"] = (hwlaunches if weighted
+                              else hlaunches)[r["name"]]
+        if r["name"] in ("coo_stat[mcd_hi_dout]", "coo_stat[hi_dout]"):
+            # their own counted path: the sharded engine's unfused rounds
+            r["launches"] = slaunches[r["name"]]
+            r["status"] = "on the sharded path (phase 8)"
+    log(f"phase 8: the halo passes i and iii {t8w - t8h:.1f} s, "
+        f"ii {t8e - t8hw:.1f} s")
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s (the smoke's growth "
+        f"for the sharded engine; the range and halo passes "
+        f"{time.perf_counter() - t8r:.1f} s)")
+
 
 
 def _pad512(x: int) -> int:
@@ -1699,48 +1839,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 8: engine="sharded" on a world of one NCCL rank -----------
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_edge_mesh
-    t8 = time.perf_counter()
     start_world()
-    mesh = make_edge_mesh()
-    sample = g.edge_array()[pick]
-    batches4 = [("burst remove", None, None, sample),
-                ("burst insert", sample, None, None)]
-    batches4 += [(f"mixed {ev.t}", ev.edges, None, ev.removals)
-                 for ev in stream]
-    batches5 = [(h["name"], h["ins"], h["iw"], h["rm"]) for h in whistory]
-    slaunches, swalls = phase_sharded(device, mesh, start4, batches4,
-                                      history, "4")
-    torch.cuda.empty_cache()
-    swlaunches, swwalls = phase_sharded(device, mesh, start5, batches5,
-                                        whistory, "5")
-    torch.cuda.empty_cache()
-    t8r = time.perf_counter()
-    rlaunches, _ = phase_sharded(device, mesh, start4, batches4, history,
-                                 "4", vertex_sharding="range",
-                                 beside=swalls)
-    del start4, history, batches4
-    torch.cuda.empty_cache()
-    rwlaunches, _ = phase_sharded(device, mesh, start5, batches5, whistory,
-                                  "5", vertex_sharding="range",
-                                  beside=swwalls)
-    del start5, whistory, batches5
-    dist.destroy_process_group()
-    torch.cuda.empty_cache()
-    for r in rows:
-        weighted = r["name"] == "coo_stat[wsum]"
-        r["sharded_launches"] = (swlaunches if weighted
-                                 else slaunches)[r["name"]]
-        r["range_launches"] = (rwlaunches if weighted
-                               else rlaunches)[r["name"]]
-        if r["name"] in ("coo_stat[mcd_hi_dout]", "coo_stat[hi_dout]"):
-            # their own counted path: the sharded engine's unfused rounds
-            r["launches"] = slaunches[r["name"]]
-            r["status"] = "on the sharded path (phase 8)"
-    log(f"phase 8: {time.perf_counter() - t8:.1f} s (the smoke's growth "
-        f"for the sharded engine; the range passes "
-        f"{time.perf_counter() - t8r:.1f} s)")
+    kept = dict(start4=start4, history=history, start5=start5,
+                whistory=whistory)
+    del start4, history, start5, whistory
+    phase_8(device, g.edge_array()[pick], stream, kept, rows)
+    torch.distributed.destroy_process_group()
 
     # ---- phases 6-7 set-up: the ER graph, its ELL matrix, its cores -----
     from repro_torch.graph.csr import ell_from_csr

@@ -19,6 +19,9 @@ checkpoints are the payload both packages read and write.
         --engine sharded --mixed --verify                # 4 cards, NCCL
     torchrun --nproc-per-node 2 examples/stream_maintenance_torch.py \
         --device cpu --engine sharded --vertex-sharding range --mixed --verify
+    torchrun --nproc-per-node 4 examples/stream_maintenance_torch.py \
+        --device cpu --engine sharded --vertex-sharding halo --mesh-shape 2x2 \
+        --frontier-exchange sparse --mixed --verify
 
 ``--engine sharded`` runs the sharded engine over ``torch.distributed``:
 under ``torchrun`` every rank takes its group from the environment (one
@@ -26,11 +29,15 @@ card a rank); run alone it initializes a world of one (gloo on
 ``--device cpu``, NCCL on the card). Every rank replays the same stream;
 rank 0 prints and writes the checkpoints. ``--vertex-sharding range``
 keeps each rank's owned slice of the vertex state and a per-batch halo
-instead of the whole replicated state.
+instead of the whole replicated state; ``--vertex-sharding halo`` does
+the same on a 2-axis ``--mesh-shape DExDV`` mesh (edge shards x vertex
+owners; by default ``1xWORLD``). ``--frontier-exchange sparse`` sends
+each round's changed owners as compacted ids under either.
 """
 import argparse
 import datetime
 import os
+import re
 import sys
 import tempfile
 import time
@@ -78,10 +85,26 @@ def main():
         choices=("replicated", "range", "halo"),
         help="where the per-vertex state lives under --engine sharded: "
              "replicated (every rank holds all of it; one all-reduce a "
-             "statistic) or range (each rank owns a vertex range and a "
+             "statistic), range (each rank owns a vertex range and a "
              "per-batch halo; statistics complete by a bounded "
-             "all_gather, the halo refreshes by reduce_scatter); halo "
-             "(the 2-axis mesh) is ROADMAP Queue 1 B item 3",
+             "all_gather, the halo refreshes by reduce_scatter) or halo "
+             "(the same on a 2-axis edge x vertex mesh, --mesh-shape; "
+             "statistics gain one all-reduce over the edge axis)",
+    )
+    ap.add_argument(
+        "--mesh-shape", default=None, metavar="DExDV",
+        help="(d_e, d_v) factorization for --vertex-sharding halo, e.g. "
+             "2x2; the product must be the world size (default: 1xWORLD, "
+             "every rank an owner)",
+    )
+    ap.add_argument(
+        "--frontier-exchange", default="bitmask",
+        choices=("bitmask", "sparse"),
+        help="how the changed owners refresh the halos under "
+             "--vertex-sharding range or halo: bitmask (the dense halo "
+             "regather, a reduce_scatter a refresh) or sparse (compacted "
+             "ids in a planned capacity bucket, all_gathered, falling "
+             "back to the dense regather in a round that overflows it)",
     )
     ap.add_argument(
         "--weighted", action="store_true",
@@ -107,12 +130,22 @@ def main():
         ap.error("--weighted needs a device engine (unified or sharded)")
     if args.window is not None and args.window < 1:
         ap.error("--window must be >= 1")
-    if args.vertex_sharding == "halo":
-        ap.error("--vertex-sharding halo (the 2-axis edge x vertex mesh) "
-                 "is ROADMAP Queue 1 B item 3; the port runs replicated "
-                 "and range")
-    if args.vertex_sharding != "replicated" and args.engine != "sharded":
-        ap.error("--vertex-sharding needs --engine sharded")
+    if args.vertex_sharding in ("range", "halo") and args.engine != "sharded":
+        ap.error(f"--vertex-sharding {args.vertex_sharding} needs "
+                 "--engine sharded")
+    if (args.frontier_exchange == "sparse"
+            and args.vertex_sharding not in ("range", "halo")):
+        ap.error("--frontier-exchange sparse needs --vertex-sharding "
+                 "range or halo")
+    mesh_shape = None
+    if args.mesh_shape:
+        mm = re.fullmatch(r"(\d+)x(\d+)", args.mesh_shape)
+        if not mm:
+            ap.error(f"--mesh-shape must look like 4x2, got "
+                     f"{args.mesh_shape!r}")
+        mesh_shape = (int(mm.group(1)), int(mm.group(2)))
+        if args.vertex_sharding != "halo":
+            ap.error("--mesh-shape needs --vertex-sharding halo")
 
     if args.window is not None:
         # timestamped arrivals over a --batches-step horizon; the window
@@ -151,7 +184,9 @@ def main():
     if os.path.exists(state_path) and os.path.exists(meta_path):
         m = CoreMaintainer.load(state_path, device=args.device,
                                 engine=args.engine, weighted=args.weighted,
-                                vertex_sharding=args.vertex_sharding)
+                                vertex_sharding=args.vertex_sharding,
+                                mesh_shape=mesh_shape,
+                                frontier_exchange=args.frontier_exchange)
         start_batch = int(open(meta_path).read().strip()) + 1
         say(f"[resume] restored checkpoint, continuing at batch "
             f"{start_batch}")
@@ -159,10 +194,17 @@ def main():
         m = CoreMaintainer.from_graph(
             g, capacity=8 * args.m, engine=args.engine,
             weighted=args.weighted, weights=w0, device=args.device,
-            vertex_sharding=args.vertex_sharding,
+            vertex_sharding=args.vertex_sharding, mesh_shape=mesh_shape,
+            frontier_exchange=args.frontier_exchange,
         )
-    shards = (f" shards={m.mesh.size()} vertex_sharding={m.vertex_sharding}"
-              if m.engine == "sharded" else "")
+    shards = ""
+    if m.engine == "sharded":
+        shards = (f" shards={m.mesh.size()} vertex_sharding="
+                  f"{m.vertex_sharding}")
+        if m.vertex_sharding == "halo":
+            shards += " mesh_shape=" + "x".join(
+                str(d) for d in m.mesh.mesh.shape)
+        shards += f" frontier_exchange={m.frontier_exchange}"
     say(f"[device] {m.device} engine={m.engine} "
         f"kernel_backend={m.kernel_backend}{shards}")
 
@@ -195,6 +237,9 @@ def main():
                      f"rounds={int(st.insert_rounds) + int(st.remove_rounds)} "
                      f"recycled={int(st.n_recycled)} "
                      f"hwm={int(st.high_water)}")
+            if m.frontier_exchange == "sparse":
+                extra += (f" max_frontier={int(st.max_frontier)} "
+                          f"overflows={int(st.n_overflow)}")
         elif ev.kind == "insert":
             extra = f"|V*|={int(st.n_promoted)} rounds={int(st.rounds)}"
         else:

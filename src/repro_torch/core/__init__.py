@@ -1,10 +1,10 @@
 """Parallel order-based core maintenance on PyTorch — the reference's
-``repro.core`` without its 2-axis halo layout and sparse frontier
-exchange: ``engine="unified"`` (unweighted and weighted),
+``repro.core``: ``engine="unified"`` (unweighted and weighted),
 ``engine="host"`` (the seed two-call path) and ``engine="sharded"``
-over ``torch.distributed`` with replicated or range-sharded
-(``vertex_sharding="range"``) vertex state, with the applications of
-maintained cores.
+over ``torch.distributed`` with replicated or halo-sharded vertex state
+(``vertex_sharding="range"`` on one shared axis, ``"halo"`` on a 2-axis
+edge x vertex mesh; either with the dense or the sparse frontier
+exchange), with the applications of maintained cores.
 
 Layers:
 * ``oracle``        — sequential Simplified-Order / Traversal / BZ (numpy).
@@ -17,10 +17,11 @@ Layers:
 * ``remove``        — batch-parallel mcd-cascade removal maintenance
                       (and the host engine's ``remove_batch``).
 * ``engine``        — the mixed-batch program (unified, and each rank of
-                      the sharded engine; its halo twin under "range").
+                      the sharded engine; its halo twin under "range"
+                      and "halo").
 * ``sharded``       — the sharded engine's per-rank program and the
                       core-only sharded building blocks.
-* ``vertex_layout`` — the replicated and range (halo) vertex layouts,
+* ``vertex_layout`` — the replicated and halo-sharded vertex layouts,
                       their collectives, ``record_traffic`` and
                       ``record_shapes``.
 * ``weighted``      — weighted-coreness oracle and reference harness.

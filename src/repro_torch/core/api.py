@@ -21,15 +21,19 @@ The port of the reference's ``core/api.py``, with its three engines:
   calls ``apply_batch`` with the same edits. Each rank keeps its
   ``capacity / world`` slots of the table. ``vertex_sharding`` picks
   where ``core`` and ``label`` live: ``"replicated"`` (every rank holds
-  all ``n``) or ``"range"`` (rank ``r`` holds its owned slice
+  all ``n``), ``"range"`` (rank ``r`` holds its owned slice
   ``[r * n_owned, (r + 1) * n_owned)`` of the state padded with zero
   phantom vertices to ``n_owned * world``; a batch adds only a bounded
-  halo working set). ``freelist`` picks the slot ranking
+  halo working set) or ``"halo"`` (the same on a 2-axis ``(d_e, d_v)``
+  edge x vertex mesh, ``mesh_shape``: rank ``e * d_v + v`` holds slot
+  block ``e * d_v + v`` and owns vertex range ``v``).
+  ``frontier_exchange="sparse"`` (range / halo) refreshes the halo with
+  compacted ids in a ``frontier_cap`` bucket (0: planned a batch) in
+  place of the dense regather. ``freelist`` picks the slot ranking
   (``"interleaved"`` | ``"hierarchical"``). The queries that read the
-  table or, under ``"range"``, the vertex state (``edge_slot``,
-  ``live_edges``, ``cores``, ``labels``, ``order_lt``, ``state``,
-  ``save``) are collectives: every rank calls them. The 2-axis
-  ``"halo"`` layout is ROADMAP Queue 1 B item 3.
+  table or, under ``"range"`` / ``"halo"``, the vertex state
+  (``edge_slot``, ``live_edges``, ``cores``, ``labels``, ``order_lt``,
+  ``state``, ``save``) are collectives: every rank calls them.
 
 Under the device engines the host keeps
 
@@ -76,7 +80,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..graph.csr import CSRGraph, build_csr
-from ..launch.mesh import make_edge_mesh
+from ..launch.mesh import make_edge_mesh, make_edge_vertex_mesh, table_group
 from .decomposition import peel_decomposition, rank_to_labels
 from .engine import BatchStats, apply_batch, apply_batch_weighted
 from .graph_ops import KERNEL_BACKENDS
@@ -109,6 +113,63 @@ def plan_window(hwm_ub: int, b_ins: int, local_cap: int) -> int:
     """Pow2 bucket of the active window covering the high-water bound
     plus a ``b_ins``-insert batch, clamped to the table size."""
     return min(_pow2_roundup(max(16, hwm_ub + b_ins + 1)), local_cap)
+
+
+def plan_frontier_cap(frontier_exchange: str, pinned_cap: int,
+                      b_pad: int, n_owned: int, observed: int = 0) -> int:
+    """Pow2 capacity of the sparse frontier buffer for a batch padded to
+    ``b_pad`` lanes: 0 when the exchange is off, ``pinned_cap`` as given
+    when the caller pinned one, else a few cascade multiples of the
+    batch grown to twice ``observed`` (a running quantile of the
+    stream's per-batch ``stats.max_frontier``) and clamped to the pow2
+    roof of the owned range, past which the sparse buffer cannot beat
+    the dense exchange. A cap too small costs only the dense fallback
+    of the rounds that overflow it, never correctness."""
+    if frontier_exchange != "sparse":
+        return 0
+    if pinned_cap > 0:
+        return pinned_cap
+    cap = _pow2_roundup(max(32, 4 * b_pad, 2 * observed))
+    while cap // 2 >= n_owned:
+        cap //= 2
+    return cap
+
+
+def bucket_lattice(local_cap: int, max_batch_lanes: int,
+                   frontier_exchange: str = "bitmask",
+                   pinned_cap: int = 0, n_owned: int = 1) -> list:
+    """Every ``(window, frontier_cap)`` bucket pair the planners above
+    can reach for batches up to ``max_batch_lanes`` padded lanes: each
+    pair keys one sharded program (``CoreMaintainer._sharded_fn``), so
+    the lattice bounds how many a stream builds. The windows are the
+    pow2 ladder from 16 clamped to ``local_cap``; the sparse caps are
+    the planned caps of every pow2 batch bucket and, unpinned, the pow2
+    ladder from the smallest up to the owned-range roof (the observed
+    quantile can push a cap up any rung of it)."""
+    windows = set()
+    p = 16
+    while p < local_cap:
+        windows.add(p)
+        p *= 2
+    windows.add(min(p, local_cap))
+    caps = set()
+    if frontier_exchange != "sparse":
+        caps.add(0)
+    else:
+        b = 1
+        while b <= max(1, max_batch_lanes):
+            caps.add(plan_frontier_cap(frontier_exchange, pinned_cap,
+                                       b, n_owned))
+            b *= 2
+        if pinned_cap <= 0:
+            c = min(caps)
+            roof = plan_frontier_cap(frontier_exchange, pinned_cap, 1,
+                                     n_owned, observed=max(1, n_owned))
+            while c < roof:
+                caps.add(c)
+                c *= 2
+            caps.add(roof)
+    return sorted((w, c) for w in windows for c in caps)
 
 
 def _pad_pow2(x: np.ndarray, fill: int) -> np.ndarray:
@@ -147,7 +208,10 @@ def resolve_backend(kernel_backend: Optional[str],
 def _check_config(engine: str, kernel_backend: Optional[str],
                   weighted: bool, mesh=None,
                   vertex_sharding: str = "replicated",
-                  freelist: str = "interleaved") -> None:
+                  freelist: str = "interleaved",
+                  mesh_shape: Optional[Tuple[int, int]] = None,
+                  frontier_exchange: str = "bitmask",
+                  frontier_cap: int = 0) -> None:
     """The engine configuration, checked as the reference's
     ``__post_init__`` checks it, before any device check (so the message
     is the same on every device)."""
@@ -157,6 +221,10 @@ def _check_config(engine: str, kernel_backend: Optional[str],
         raise ValueError(f"unknown vertex_sharding {vertex_sharding!r}")
     if freelist not in ("interleaved", "hierarchical"):
         raise ValueError(f"unknown freelist {freelist!r}")
+    if frontier_exchange not in ("bitmask", "sparse"):
+        raise ValueError(
+            f"unknown frontier_exchange {frontier_exchange!r}"
+        )
     if mesh is not None and engine != "sharded":
         raise ValueError(
             f"mesh= is only consumed by engine='sharded' (got "
@@ -169,17 +237,45 @@ def _check_config(engine: str, kernel_backend: Optional[str],
             "engine='sharded' (the other engines keep full vertex "
             "state on one device)"
         )
-    if vertex_sharding == "halo":
-        raise NotImplementedError(
-            "vertex_sharding='halo' (the 2-axis edge x vertex mesh) is "
-            "ROADMAP Queue 1 B item 3; the port's sharded engine runs "
-            "vertex_sharding='replicated' and 'range'"
-        )
+    if mesh_shape is not None:
+        if vertex_sharding != "halo":
+            raise ValueError(
+                f"mesh_shape={mesh_shape} is only consumed by "
+                "vertex_sharding='halo' (the single-axis layouts would "
+                "silently ignore the factorization)"
+            )
+        if mesh is not None:
+            raise ValueError(
+                "pass mesh= OR mesh_shape=, not both — mesh_shape builds "
+                "the default 2-axis mesh; a user mesh carries its own "
+                "factorization"
+            )
+        de, dv = mesh_shape
+        if de < 1 or dv < 1:
+            raise ValueError(f"mesh_shape must be positive, got {mesh_shape}")
     if freelist == "hierarchical" and engine != "sharded":
         raise ValueError(
             "freelist='hierarchical' needs engine='sharded' — the "
             "ranking only differs across shards, so accepting it "
             "elsewhere would silently do nothing"
+        )
+    if frontier_exchange == "sparse" and vertex_sharding not in (
+            "range", "halo"):
+        raise ValueError(
+            "frontier_exchange='sparse' needs vertex_sharding='range' or "
+            "'halo' (only the halo layouts exchange frontier refreshes; "
+            "the replicated layout would silently ignore it)"
+        )
+    if frontier_cap < 0:
+        raise ValueError(
+            f"frontier_cap must be >= 0 (0 = plan automatically), got "
+            f"{frontier_cap}"
+        )
+    if frontier_cap > 0 and frontier_exchange != "sparse":
+        raise ValueError(
+            f"frontier_cap={frontier_cap} is only consumed by "
+            "frontier_exchange='sparse' — the bitmask exchange would "
+            "silently ignore it"
         )
     if engine == "host" and kernel_backend == "cuda":
         raise ValueError(
@@ -197,6 +293,19 @@ def _check_config(engine: str, kernel_backend: Optional[str],
         )
 
 
+def _default_edge_mesh(vertex_sharding: str = "replicated",
+                       mesh_shape: Optional[Tuple[int, int]] = None):
+    """The mesh a sharded maintainer builds when given none, over the
+    initialized world: under ``"halo"`` the 2-axis ``mesh_shape`` (by
+    default ``(1, world)``, the pure owner-axis column), else the 1-D
+    edge mesh (under ``"range"`` its one axis carries the edge shards
+    AND the vertex ranges)."""
+    if vertex_sharding == "halo":
+        return make_edge_vertex_mesh(
+            mesh_shape=mesh_shape or (1, dist.get_world_size()))
+    return make_edge_mesh(axis=EDGE_AXIS)
+
+
 @dataclasses.dataclass
 class CoreMaintainer:
     """Dynamic-graph core maintenance with k-order labels (PyTorch)."""
@@ -212,13 +321,20 @@ class CoreMaintainer:
     # slot high-water mark (host)
     n_edges: torch.Tensor
     core: torch.Tensor     # int32 [n]; the owned [n_owned] under "range"
-    label: torch.Tensor    # int64 [n]; the owned [n_owned] under "range"
+    #                        and "halo"
+    label: torch.Tensor    # int64 [n]; likewise
     n_levels: int
     engine: str = "unified"     # "unified" | "host" | "sharded"
     mesh: Optional[Any] = None  # sharded engine only: a DeviceMesh with
     #                             a "data" dimension
-    vertex_sharding: str = "replicated"  # | "range" ("halo": ROADMAP B)
+    vertex_sharding: str = "replicated"  # | "range" | "halo"
+    mesh_shape: Optional[Tuple[int, int]] = None  # (d_e, d_v): builds the
+    #                             default mesh of vertex_sharding="halo"
     freelist: str = "interleaved"        # "interleaved" | "hierarchical"
+    frontier_exchange: str = "bitmask"   # "bitmask" (the dense halo
+    #                                      regather) | "sparse" (range/halo)
+    frontier_cap: int = 0  # the sparse buffer's capacity; 0: planned a
+    #                        batch as a pow2 bucket
     kernel_backend: Optional[str] = None  # None: "cuda" on a card
     validate: bool = True  # raise on out-of-range endpoints (else mask)
     weighted: bool = False
@@ -235,15 +351,25 @@ class CoreMaintainer:
     _sharded_table: bool = dataclasses.field(default=False, repr=False)
     # core/label hold this rank's owned slice (set by _place_vertices)
     _owned_vertices: bool = dataclasses.field(default=False, repr=False)
-    # sharded engine: the mesh's "data" process group, and this rank's
-    # apply function for each per-shard window
+    # sharded engine: the mesh's "data" (owner) process group, the group
+    # of every rank the table is sharded over (the same group on one
+    # axis), and this rank's apply function for each (window, cap) bucket
     _group: Any = dataclasses.field(default=None, repr=False)
-    _sharded_fns: Dict[int, Callable] = dataclasses.field(
+    _table_group: Any = dataclasses.field(default=None, repr=False)
+    _sharded_fns: Dict[Tuple[int, int], Callable] = dataclasses.field(
         default_factory=dict, repr=False)
+    # the planned sparse cap's feedback: this stream's per-batch
+    # max_frontier (device scalars not read yet, and the host ints)
+    _frontier_obs: list = dataclasses.field(default_factory=list,
+                                            repr=False)
+    _frontier_hist: list = dataclasses.field(default_factory=list,
+                                             repr=False)
 
     def __post_init__(self) -> None:
         _check_config(self.engine, self.kernel_backend, self.weighted,
-                      self.mesh, self.vertex_sharding, self.freelist)
+                      self.mesh, self.vertex_sharding, self.freelist,
+                      self.mesh_shape, self.frontier_exchange,
+                      self.frontier_cap)
         dev = self.src.device
         self.kernel_backend = resolve_backend(self.kernel_backend, dev,
                                               self.engine)
@@ -276,18 +402,28 @@ class CoreMaintainer:
                                         device=dev)
         if self.engine == "sharded":
             if self.mesh is None:
-                self.mesh = make_edge_mesh(axis=EDGE_AXIS)
+                self.mesh = _default_edge_mesh(self.vertex_sharding,
+                                               self.mesh_shape)
             if self.mesh.device_type != dev.type:
                 raise ValueError(
                     f"the mesh is on {self.mesh.device_type!r} but the "
                     f"maintainer's device is {dev}: NCCL meshes hold CUDA "
                     "tensors, gloo meshes CPU tensors"
                 )
-            self._group = axis_group(self.mesh, EDGE_AXIS)
-            # one small collective: NCCL builds its communicator at the
-            # first one, and that belongs to set-up, not the first batch
-            dist.all_reduce(torch.zeros(1, dtype=torch.int32, device=dev),
-                            group=self._group)
+            self._group = axis_group(self.mesh, EDGE_AXIS,
+                                     self.vertex_sharding)
+            self._table_group = table_group(self.mesh)
+            # one small collective a group: NCCL builds a communicator at
+            # its first one, and that belongs to set-up, not the first
+            # batch
+            for name in self.mesh.mesh_dim_names:
+                dist.all_reduce(torch.zeros(1, dtype=torch.int32,
+                                            device=dev),
+                                group=self.mesh.get_group(name))
+            if self._table_group is not self._group:
+                dist.all_reduce(torch.zeros(1, dtype=torch.int32,
+                                            device=dev),
+                                group=self._table_group)
             self._place_vertices()
             if self._n_shards > 1:
                 # one re-layout: pad capacity to an even shard split AND
@@ -305,8 +441,8 @@ class CoreMaintainer:
     # -- sharded placement ---------------------------------------------------
     @property
     def _n_shards(self) -> int:
-        """Edge-slot shard count: the mesh size (1 off the sharded
-        engine)."""
+        """Edge-slot shard count: the whole mesh size, ``d_e * d_v`` on
+        the 2-axis mesh (1 off the sharded engine)."""
         if self.engine != "sharded":
             return 1
         return self.mesh.size()
@@ -317,18 +453,27 @@ class CoreMaintainer:
         return self.capacity // self._n_shards
 
     @property
+    def _halo_layout(self) -> bool:
+        """Does each rank own a slice of the vertex state (``"range"``,
+        ``"halo"``)?"""
+        return (self.engine == "sharded"
+                and self.vertex_sharding in ("range", "halo"))
+
+    @property
     def _d_v(self) -> int:
-        """Vertex owner-shard count: the mesh size under
-        ``vertex_sharding="range"`` (the one shared axis), else 1."""
-        if self.engine != "sharded" or self.vertex_sharding != "range":
+        """Vertex owner-shard count: the size of the owner (``"data"``)
+        axis under ``"range"`` / ``"halo"``, else 1."""
+        if not self._halo_layout:
             return 1
-        return self.mesh.size()
+        return self.mesh.mesh.shape[
+            tuple(self.mesh.mesh_dim_names).index(EDGE_AXIS)]
 
     @property
     def _n_vertex_pad(self) -> int:
-        """Vertex-state length under ``"range"``: ``n`` rounded up to an
-        owner-shard multiple (the phantom tail holds zeros, is never
-        referenced by an edge and is never returned)."""
+        """Vertex-state length under ``"range"`` / ``"halo"``: ``n``
+        rounded up to an owner-shard multiple (the phantom tail holds
+        zeros, is never referenced by an edge and is never
+        returned)."""
         return -(-self.n // self._d_v) * self._d_v
 
     def _pad_vertex_state(self) -> None:
@@ -338,11 +483,11 @@ class CoreMaintainer:
             self.label = torch.cat([self.label, self.label.new_zeros(pad)])
 
     def _place_vertices(self) -> None:
-        """Under ``vertex_sharding="range"``: pad the vertex state to
-        ``n_owned * world`` and keep this rank's owned slice (once, at
-        construction: set-up may hold ``[n]`` for a moment, the batch
-        path never does)."""
-        if self.vertex_sharding != "range" or self._owned_vertices:
+        """Under ``"range"`` / ``"halo"``: pad the vertex state to
+        ``n_owned * d_v`` and keep the owned slice of this rank's owner
+        coordinate (once, at construction: set-up may hold ``[n]`` for a
+        moment, the batch path never does)."""
+        if not self._halo_layout or self._owned_vertices:
             return
         self._pad_vertex_state()
         no = self._n_vertex_pad // self._d_v
@@ -353,20 +498,23 @@ class CoreMaintainer:
 
     def _full(self, x: torch.Tensor) -> torch.Tensor:
         """A vertex-state tensor (``core`` or ``label``) as the GLOBAL
-        ``[n]`` on the maintainer's device: itself, or under ``"range"``
-        one all_gather of the owned slices with the phantom tail
-        stripped (a collective: every rank calls it)."""
+        ``[n]`` on the maintainer's device: itself, or under ``"range"`` /
+        ``"halo"`` one all_gather of the owned slices over the owner
+        group with the phantom tail stripped (a collective: every rank
+        calls it)."""
         if not self._owned_vertices:
             return x
         return all_gather(x, self._group, "gather_vertex").reshape(-1)[
             : self.n]
 
     def _place_sharded(self) -> None:
-        """Keep this rank's block of the global slot table (rank r holds
-        slots ``[r * local_cap, (r + 1) * local_cap)``, at offset 0 of
-        its own tensors); the vertex state stays replicated."""
+        """Keep this rank's block of the global slot table (rank r of the
+        table group, ``e * d_v + v`` on the 2-axis mesh, holds slots
+        ``[r * local_cap, (r + 1) * local_cap)``, at offset 0 of its own
+        tensors); the vertex state stays where ``_place_vertices`` put
+        it."""
         lc = self._local_cap
-        r = axis_index(self._group)
+        r = axis_index(self._table_group)
 
         def mine(x):
             part = x[r * lc:(r + 1) * lc]
@@ -389,7 +537,7 @@ class CoreMaintainer:
             return cols
         return tuple(
             None if x is None
-            else all_gather(x, self._group, "gather_table").reshape(-1)
+            else all_gather(x, self._table_group, "gather_table").reshape(-1)
             for x in cols)
 
     # -- construction -------------------------------------------------------
@@ -408,6 +556,9 @@ class CoreMaintainer:
         mesh: Optional[Any] = None,
         vertex_sharding: str = "replicated",
         freelist: str = "interleaved",
+        mesh_shape: Optional[Tuple[int, int]] = None,
+        frontier_exchange: str = "bitmask",
+        frontier_cap: int = 0,
     ) -> "CoreMaintainer":
         """Build a maintainer from a static graph. ``init="host-bz"``
         runs the sequential BZ oracle on the host; ``init="jax-peel"``
@@ -424,10 +575,12 @@ class CoreMaintainer:
         ``(core, vertex id)`` lexicographic ranks.
 
         ``engine="sharded"``: every rank calls this with the same graph
-        (``mesh``, ``vertex_sharding`` and ``freelist`` as the fields);
-        each computes the same initial state and keeps its shard."""
+        (``mesh``, ``vertex_sharding``, ``mesh_shape``, ``freelist``,
+        ``frontier_exchange`` and ``frontier_cap`` as the fields); each
+        computes the same initial state and keeps its shard."""
         _check_config(engine, kernel_backend, weighted, mesh,
-                      vertex_sharding, freelist)
+                      vertex_sharding, freelist, mesh_shape,
+                      frontier_exchange, frontier_cap)
         dev = resolve_device(device)
         edges = g.edge_array()
         m = edges.shape[0]
@@ -446,7 +599,10 @@ class CoreMaintainer:
                       n_edges=torch.tensor(m, dtype=torch.int32, device=dev),
                       n_levels=g.n + 2, engine=engine, validate=validate,
                       live_ub=m, hwm_ub=m, mesh=mesh,
-                      vertex_sharding=vertex_sharding, freelist=freelist)
+                      vertex_sharding=vertex_sharding, freelist=freelist,
+                      mesh_shape=mesh_shape,
+                      frontier_exchange=frontier_exchange,
+                      frontier_cap=frontier_cap)
         if weighted:
             wv = (np.ones(m, dtype=np.int64) if weights is None
                   else np.asarray(weights, dtype=np.int64).reshape(-1))
@@ -504,6 +660,9 @@ class CoreMaintainer:
         mesh: Optional[Any] = None,
         vertex_sharding: str = "replicated",
         freelist: str = "interleaved",
+        mesh_shape: Optional[Tuple[int, int]] = None,
+        frontier_exchange: str = "bitmask",
+        frontier_cap: int = 0,
     ) -> "CoreMaintainer":
         """Build a maintainer from the reference's state as numpy arrays:
         the keys of its ``save`` payload (n, capacity, src, dst, valid,
@@ -515,7 +674,8 @@ class CoreMaintainer:
         ``engine="sharded"`` every rank calls it with the same (global)
         arrays and keeps its shard."""
         _check_config(engine, kernel_backend, weighted, mesh,
-                      vertex_sharding, freelist)
+                      vertex_sharding, freelist, mesh_shape,
+                      frontier_exchange, frontier_cap)
         dev = resolve_device(device)
         missing = [k for k in _STATE_KEYS if k not in arrays]
         if missing:
@@ -545,6 +705,9 @@ class CoreMaintainer:
             mesh=mesh,
             vertex_sharding=vertex_sharding,
             freelist=freelist,
+            mesh_shape=mesh_shape,
+            frontier_exchange=frontier_exchange,
+            frontier_cap=frontier_cap,
         )
 
     # -- queries -------------------------------------------------------------
@@ -564,13 +727,13 @@ class CoreMaintainer:
         return self.slot_cache
 
     def cores(self) -> np.ndarray:
-        """Core numbers ``[n]`` (gathered under ``"range"``: a
-        collective)."""
+        """Core numbers ``[n]`` (gathered under ``"range"`` / ``"halo"``:
+        a collective)."""
         return self._full(self.core).cpu().numpy()[: self.n]
 
     def labels(self) -> np.ndarray:
-        """k-order labels ``[n]`` (gathered under ``"range"``: a
-        collective)."""
+        """k-order labels ``[n]`` (gathered under ``"range"`` /
+        ``"halo"``: a collective)."""
         return self._full(self.label).cpu().numpy()[: self.n]
 
     def order_lt(self, u: int, v: int) -> bool:
@@ -586,7 +749,7 @@ class CoreMaintainer:
         engine: every rank calls it)."""
         count = self.valid.sum(dtype=torch.int32)
         if self._sharded_table:
-            count = psum(count, self._group, "psum_table")
+            count = psum(count, self._table_group, "psum_table")
         return int(count)
 
     # -- validation ----------------------------------------------------------
@@ -703,8 +866,10 @@ class CoreMaintainer:
             state = (self.src, self.dst, self.valid, self.core, self.label,
                      self.n_edges)
         if self.engine == "sharded":
-            # every rank runs its shard's window with the same batch
-            out = self._sharded_fn(window)(*state, *lanes)
+            # every rank runs its shard's window with the same batch; the
+            # sparse cap is a second bucket, keyed off the padded batch
+            fcap = self._frontier_bucket(max(len(iu), len(ru)))
+            out = self._sharded_fn(window, fcap)(*state, *lanes)
         elif self.weighted:
             out = apply_batch_weighted(
                 *state, *lanes, self.n, self.n_levels, window,
@@ -725,21 +890,57 @@ class CoreMaintainer:
         self.live_ub = min(self.live_ub + b_ins, self.capacity)
         self.slot_cache = None
         self.last_batch_stats = stats
+        if self.frontier_exchange == "sparse" and self.frontier_cap == 0:
+            # kept for the planned cap's feedback (_observed_frontier)
+            self._frontier_obs.append(stats.max_frontier)
         return stats
 
-    def _sharded_fn(self, local_active: int) -> Callable:
-        """This rank's sharded program for one per-shard window (a pow2
-        bucket), built once."""
-        fn = self._sharded_fns.get(local_active)
+    def _sharded_fn(self, local_active: int,
+                    frontier_cap: int = 0) -> Callable:
+        """This rank's sharded program for one (per-shard window,
+        frontier cap) bucket pair, both powers of two, built once."""
+        key = (local_active, frontier_cap)
+        fn = self._sharded_fns.get(key)
         if fn is None:
-            fn = self._sharded_fns[local_active] = make_sharded_apply(
+            fn = self._sharded_fns[key] = make_sharded_apply(
                 self.mesh, self.n, self.n_levels, axis=EDGE_AXIS,
                 local_active=local_active,
                 vertex_sharding=self.vertex_sharding,
-                freelist=self.freelist, kernel_backend=self.kernel_backend,
+                freelist=self.freelist,
+                frontier_exchange=self.frontier_exchange,
+                frontier_cap=frontier_cap,
+                kernel_backend=self.kernel_backend,
                 weighted=self.weighted,
             )
         return fn
+
+    def _frontier_bucket(self, b_pad: int) -> int:
+        """The sparse cap for a batch padded to ``b_pad`` lanes
+        (``plan_frontier_cap``; 0 when the exchange is dense)."""
+        return plan_frontier_cap(
+            self.frontier_exchange, self.frontier_cap, b_pad,
+            self._n_vertex_pad // self._d_v,
+            observed=self._observed_frontier(),
+        )
+
+    def _observed_frontier(self) -> int:
+        """Running quantile (p95) of the stream's per-batch
+        ``stats.max_frontier``, the datum the planned sparse cap grows
+        from. The reference reads only the device scalars that are
+        already computed, one host deciding for the whole SPMD program;
+        here every rank plans its own cap and the ranks must agree on
+        it (the caps size their all_gathers), so every rank reads every
+        earlier batch's value, which the owner group's all-reduce made
+        the same on every rank: one host read of what the previous
+        batch already synchronized."""
+        if self.frontier_exchange != "sparse" or self.frontier_cap > 0:
+            return 0
+        self._frontier_hist += [int(x) for x in self._frontier_obs]
+        self._frontier_obs = []
+        hist = self._frontier_hist = self._frontier_hist[-256:]
+        if not hist:
+            return 0
+        return sorted(hist)[int(0.95 * (len(hist) - 1))]
 
     def _apply_batch_host(self, ins: np.ndarray,
                           rm: np.ndarray) -> BatchStats:
@@ -1012,9 +1213,9 @@ class CoreMaintainer:
         if not self._sharded_table:
             np.savez_compressed(path, **payload)
             return
-        if axis_index(self._group) == 0:
+        if axis_index(self._table_group) == 0:
             np.savez_compressed(path, **payload)
-        torch.distributed.barrier(group=self._group)
+        torch.distributed.barrier(group=self._table_group)
 
     @classmethod
     def load(cls, path: str, device=None,
@@ -1022,7 +1223,10 @@ class CoreMaintainer:
              engine: str = "unified", weighted: bool = False,
              validate: bool = True, mesh: Optional[Any] = None,
              vertex_sharding: str = "replicated",
-             freelist: str = "interleaved") -> "CoreMaintainer":
+             freelist: str = "interleaved",
+             mesh_shape: Optional[Tuple[int, int]] = None,
+             frontier_exchange: str = "bitmask",
+             frontier_cap: int = 0) -> "CoreMaintainer":
         """Load a checkpoint of either package, saved on any engine and
         shard count (under ``engine="sharded"`` every rank loads it)."""
         with np.load(path) as z:
@@ -1031,7 +1235,9 @@ class CoreMaintainer:
                               kernel_backend=kernel_backend, engine=engine,
                               weighted=weighted, validate=validate,
                               mesh=mesh, vertex_sharding=vertex_sharding,
-                              freelist=freelist)
+                              freelist=freelist, mesh_shape=mesh_shape,
+                              frontier_exchange=frontier_exchange,
+                              frontier_cap=frontier_cap)
 
 
 def maintainer_from_edges(n: int, edges, **kw) -> CoreMaintainer:

@@ -29,7 +29,8 @@ def kcore_edge_mask(m: CoreMaintainer, k: int) -> torch.Tensor:
 
     The induced subgraph on {v: core(v) >= k} restricted to these edges
     IS the k-core (maximality of the core decomposition). Under
-    ``vertex_sharding="range"`` the cores are gathered too."""
+    ``vertex_sharding="range"`` / ``"halo"`` the cores are gathered
+    too."""
     src, dst, valid, _ = m._table()
     return _kcore_mask(m._full(m.core), src, dst, valid, k)
 

@@ -23,10 +23,10 @@ slot writes land directly in the full-capacity tensors (no slice and
 splice). ``apply_batch_weighted`` does the same with the slot table's
 weight column.
 
-``batch_program_halo`` is the same four phases for range-sharded vertex
-state (``vertex_sharding="range"``, core/sharded.py): ``core`` and
-``label`` are OWNED ``[n_owned]`` slices, and every edge pass indexes a
-bounded per-batch HALO working set (``build_halo_ids``,
+``batch_program_halo`` is the same four phases for halo-sharded vertex
+state (``vertex_sharding="range"`` and ``"halo"``, core/sharded.py):
+``core`` and ``label`` are OWNED ``[n_owned]`` slices, and every edge
+pass indexes a bounded per-batch HALO working set (``build_halo_ids``,
 ``vertex_layout.HaloSession``) instead of an ``[n]`` copy.
 """
 from __future__ import annotations
@@ -63,7 +63,7 @@ class BatchStats(NamedTuple):
     n_recycled: torch.Tensor     # inserts that reused a tombstoned slot
     high_water: torch.Tensor     # post-batch max per-shard high-water mark
     max_frontier: torch.Tensor   # max exchanged-mask count (both phases)
-    n_overflow: torch.Tensor     # sparse exchanges that fell back (0 here)
+    n_overflow: torch.Tensor     # sparse exchanges that fell back dense
 
 
 def edge_key(lo: torch.Tensor, hi: torch.Tensor, n: int) -> torch.Tensor:
@@ -301,17 +301,23 @@ def batch_program_halo(src, dst, valid, core, label, n_edges,
                        kernel_backend: str = "torch",
                        w: Optional[torch.Tensor] = None,
                        ins_w: Optional[torch.Tensor] = None):
-    """``batch_program`` for range-sharded vertex state: the same four
+    """``batch_program`` for halo-sharded vertex state: the same four
     phases over the same shard of the slot table (updated IN PLACE), with
     ``core``/``label`` OWNED ``[n_owned]`` slices and every edge pass
     over HALO positions (``session.locate``). ``table_axis`` is the group
-    the slots are sharded over (table verdicts: found flags, counts, the
-    free-list, the high-water mark); the layout's owner group completes
-    the vertex counts. Bit-identical cores, stats and k-order to
-    ``batch_program`` on the assembled state, and labels but after a
-    renumber with phantom vertices (which the ring ranks too). Returns ``(src, dst,
-    valid, core, label, n_edges, stats)``; weighted (``w``/``ins_w``)
-    ``(src, dst, valid, w, core, label, n_edges, stats)``.
+    of EVERY rank the slots are sharded over (table verdicts: found
+    flags, counts, the free-list, the high-water mark): on a 2-axis mesh
+    the table group, numbered ``e * d_v + v`` (``launch.mesh.
+    table_group``), so the degenerate ``(1, d)`` / ``(d, 1)`` meshes
+    allocate the slots of the one-axis engines. The vertex scalars
+    complete over the layout's owner group only (the owned slices are
+    replicated across the pure-edge groups). Bit-identical cores, stats
+    and k-order to ``batch_program`` on the assembled state, and labels
+    but after a renumber with phantom vertices (which the ring ranks
+    too). ``stats.n_overflow`` counts the sparse refreshes that fell
+    back to the dense regather. Returns ``(src, dst, valid, core, label,
+    n_edges, stats)``; weighted (``w``/``ins_w``) ``(src, dst, valid, w,
+    core, label, n_edges, stats)``.
     """
     weighted = w is not None
     if weighted != (ins_w is not None):
@@ -319,10 +325,10 @@ def batch_program_halo(src, dst, valid, core, label, n_edges,
     capacity = src.shape[0]
     dev = src.device
 
-    def allsum(x):  # table domain
+    def allsum(x):  # table domain: every rank
         return psum(x, table_axis, "psum_table")
 
-    def vsum(x):    # owned-vertex domain
+    def vsum(x):    # owned-vertex domain: the owner group only
         return psum(x.reshape(1), layout.axis, "psum_vertex")[0]
 
     hwm0 = G.slot_high_water(valid)
@@ -351,13 +357,16 @@ def batch_program_halo(src, dst, valid, core, label, n_edges,
 
     core_pre_rm = core
     if weighted:
+        # the weighted fixpoints keep the halo exact without a refresh:
+        # nothing there can overflow
         core, core_h, rm_rounds, rm_fmax = weighted_core_fixpoint_pass_halo(
             src_h, dst_h, valid, w, core, core_h, session,
             kernel_backend=kernel_backend,
         )
+        rm_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         (core, label, core_h, label_h, rm_rounds, hi, dout_same,
-         rm_fmax) = removal_fixpoint_halo(
+         rm_fmax, rm_ovf) = removal_fixpoint_halo(
             src_h, dst_h, valid, core, label, core_h, label_h, session,
             n_levels, kernel_backend=kernel_backend,
         )
@@ -397,6 +406,7 @@ def batch_program_halo(src, dst, valid, core, label, n_edges,
             kernel_backend=kernel_backend,
         )
         v_plus = core != core_pre_ins
+        ins_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         u_pos = session.locate(ilo)
         v_pos = session.locate(ihi)
@@ -409,8 +419,8 @@ def batch_program_halo(src, dst, valid, core, label, n_edges,
         hi = layout.add_at(hi, ihi, hi_v.to(torch.int32))
         dout_same = layout.add_at(dout_same, ilo, do_u.to(torch.int32))
         dout_same = layout.add_at(dout_same, ihi, do_v.to(torch.int32))
-        (core, label, core_h, label_h, ins_rounds, v_plus,
-         ins_fmax) = promotion_fixpoint_halo(
+        (core, label, core_h, label_h, ins_rounds, v_plus, ins_fmax,
+         ins_ovf) = promotion_fixpoint_halo(
             src_h, dst_h, valid, core, label, core_h, label_h,
             ilo, ihi, u_pos, v_pos, iok, hi, dout_same, session, n_levels,
             kernel_backend=kernel_backend,
@@ -435,9 +445,9 @@ def batch_program_halo(src, dst, valid, core, label, n_edges,
         high_water=G.slot_high_water(valid, table_axis),
         # the per-round peaks were tracked locally: ONE pmax completes them
         max_frontier=session.pmax_scalar(torch.maximum(rm_fmax, ins_fmax)),
-        # the dense halo regather never overflows (the sparse exchange,
-        # whose fallbacks this counts, is ROADMAP Queue 1 B item 4)
-        n_overflow=torch.zeros((), dtype=torch.int32, device=dev),
+        # every rank decided each fallback from the gathered counts, so
+        # the local sum is the batch's count
+        n_overflow=rm_ovf + ins_ovf,
     )
     if weighted:
         return src, dst, valid, w, core, label, n_edges, stats

@@ -24,10 +24,11 @@ fixpoint started from ``core + total batch weight``. The host engine
 allocation) and ``insert_batch``, in plain PyTorch as the reference's
 host path runs lax.
 
-The ``*_halo`` twins run the promotion rounds under range-sharded vertex
-state (``vertex_sharding="range"``): masks and decisions on OWNED
-slices, edge passes over the batch's HALO working set, each wave's and
-eviction round's mask regathered into the halo (one reduce_scatter),
+The ``*_halo`` twins run the promotion rounds under halo-sharded vertex
+state (``vertex_sharding="range"`` / ``"halo"``): masks and decisions on
+OWNED slices, edge passes over the batch's HALO working set, each
+wave's and eviction round's mask refreshed into the halo
+(``session.refresh_mask``: one reduce_scatter, or the sparse exchange),
 labels placed by ``order.place_block_ring``, and every loop condition
 an all-reduced verdict (``session.any_owned``).
 """
@@ -359,11 +360,16 @@ def promotion_fixpoint_halo(src_h, dst_h, valid, core_own, label_own,
     pending lanes' halo positions (every lane endpoint is in every
     rank's halo, so the root choice is the same everywhere) and
     ``new_src``/``new_dst`` stay global ids for the owned seed scatter.
-    ``hi``/``dout_same`` are OWNED. The commits run
-    ``order.place_block_ring``, then the (core, label) halo regather.
+    ``hi``/``dout_same`` are OWNED. The wave and eviction masks cross
+    the owner group as halo refreshes (``session.refresh_mask``), the
+    commits run ``order.place_block_ring``, then one (core, label) halo
+    refresh restricted to the moved owners (``session.refresh_values``);
+    each refresh is sparse under a ``frontier_cap`` and falls back to
+    the dense regather on overflow.
 
     Returns ``(core_own, label_own, core_h, label_h, rounds, v_plus_own,
-    max_frontier)``.
+    max_frontier, n_overflow)``: ``n_overflow`` counts the refreshes
+    that fell back (an int32 scalar, the same on every rank).
     """
     hcap = session.halo_cap
     d_v = session.layout.n_shards
@@ -371,7 +377,7 @@ def promotion_fixpoint_halo(src_h, dst_h, valid, core_own, label_own,
     zmask = torch.zeros(session.n_owned, dtype=torch.bool, device=dev)
     promoted_prev = v_plus = zmask
     fmax = torch.zeros((), dtype=torch.int32, device=dev)
-    rounds = 0
+    rounds = n_ovf = 0
     while True:
         # SEED: roots of the pending edges at the current state
         cu, cv = core_h[u_pos], core_h[v_pos]
@@ -384,12 +390,12 @@ def promotion_fixpoint_halo(src_h, dst_h, valid, core_own, label_own,
         fmax = torch.maximum(fmax, session.frontier_peak(viol))
         seed = seed | viol | promoted_prev
 
-        reach, passing, wave_fmax = _forward_reach_halo(
+        reach, passing, wave_fmax, wave_ovf = _forward_reach_halo(
             src_h, dst_h, valid, core_own, core_h, label_h, seed, hi,
             dout_same, session, kernel_backend=kernel_backend,
         )
         cand0 = reach & passing
-        cand, evict_round, ev_fmax = _evict_fixpoint_halo(
+        cand, evict_round, ev_fmax, ev_ovf = _evict_fixpoint_halo(
             src_h, dst_h, valid, core_own, core_h, cand0, hi, session,
             kernel_backend=kernel_backend,
         )
@@ -410,8 +416,9 @@ def promotion_fixpoint_halo(src_h, dst_h, valid, core_own, label_own,
             note=_note,
         )
         # cand0 covers every vertex whose core or label just moved
-        core_h = session.gather_values(new_core)
-        label_h = session.gather_values(label_own)
+        core_h, label_h, ovf = session.refresh_values(
+            new_core, label_own, cand0, core_h, label_h)
+        n_ovf += wave_ovf + ev_ovf + ovf
         new_hi, new_dout = G.hi_and_dout_same(
             src_h, dst_h, valid, core_h, label_h, hcap, session,
             backend=kernel_backend,
@@ -425,21 +432,26 @@ def promotion_fixpoint_halo(src_h, dst_h, valid, core_own, label_own,
         if not bool(changed):
             break
     rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
-    return core_own, label_own, core_h, label_h, rounds, v_plus, fmax
+    n_ovf = torch.tensor(n_ovf, dtype=torch.int32, device=dev)
+    return (core_own, label_own, core_h, label_h, rounds, v_plus, fmax,
+            n_ovf)
 
 
 def _forward_reach_halo(src_h, dst_h, valid, core_own, core_h, label_h,
                         seed, hi, dout_same, session: HaloSession,
                         kernel_backend: str = "torch"):
-    """``_forward_reach`` with OWNED loop masks and a halo regather of
+    """``_forward_reach`` with OWNED loop masks and a halo refresh of
     the reached-and-passing frontier each wave. Returns ``(reach,
-    passing, max_frontier)``, owned masks."""
+    passing, max_frontier, n_overflow)``: owned masks, and the waves
+    whose sparse refresh fell back (a Python int)."""
     hcap = session.halo_cap
     reach = seed
     passing = (hi + dout_same) > core_own
     fmax = session.frontier_peak(passing)
+    n_ovf = 0
     while True:
-        rp_h = session.gather_values((reach & passing).to(torch.int32)) > 0
+        rp_h, ovf = session.refresh_mask(reach & passing)
+        n_ovf += ovf
         din, grow = G.din_and_expand(src_h, dst_h, valid, core_h, label_h,
                                      rp_h, hcap, session,
                                      backend=kernel_backend)
@@ -451,22 +463,25 @@ def _forward_reach_halo(src_h, dst_h, valid, core_own, core_h, label_h,
                                     | (new_passing != passing))
         reach, passing = new_reach, new_passing
         if not bool(changed):
-            return reach, passing, fmax
+            return reach, passing, fmax, n_ovf
 
 
 def _evict_fixpoint_halo(src_h, dst_h, valid, core_own, core_h, cand, hi,
                          session: HaloSession,
                          kernel_backend: str = "torch"):
-    """``_evict_fixpoint`` with OWNED candidate masks and a halo regather
-    each round. Returns ``(cand, evict_round, max_frontier)``, owned
-    arrays."""
+    """``_evict_fixpoint`` with OWNED candidate masks and a halo refresh
+    each round. Returns ``(cand, evict_round, max_frontier,
+    n_overflow)``: owned arrays, and the rounds whose sparse refresh
+    fell back (a Python int)."""
     hcap = session.halo_cap
     dev = core_own.device
     evict_round = torch.zeros(session.n_owned, dtype=torch.int32, device=dev)
     fmax = torch.zeros((), dtype=torch.int32, device=dev)
     rnd = 1
+    n_ovf = 0
     while True:
-        cand_h = session.gather_values(cand.to(torch.int32)) > 0
+        cand_h, ovf = session.refresh_mask(cand)
+        n_ovf += ovf
         support = hi + G.count_same_level_in(src_h, dst_h, valid, core_h,
                                              cand_h, hcap, session,
                                              backend=kernel_backend)
@@ -481,4 +496,4 @@ def _evict_fixpoint_halo(src_h, dst_h, valid, core_own, core_h, cand, hi,
         cand = new_cand
         rnd += 1
         if not bool(changed):
-            return cand, evict_round, fmax
+            return cand, evict_round, fmax, n_ovf

@@ -12,9 +12,11 @@ exactly as the reference defines them.
 
 The ring variants (``place_block_ring``, ``renumber_ring``,
 ``maybe_renumber_ring``) run the same placements on OWNED slices of
-range-sharded vertex state (``vertex_sharding="range"``): the global
-quantities ``place_block`` reads off per-level arrays are accumulated
-over a ring of ``world - 1`` rotations of the other ranks' blocks, each
+halo-sharded vertex state (``vertex_sharding="range"`` / ``"halo"``):
+the global quantities ``place_block`` reads off per-level arrays are
+accumulated over a ring of ``d_v - 1`` rotations of the other owners'
+blocks (on a 2-axis mesh each edge row runs its own ring over its owner
+group, on the same owned values), each
 rotation one ``batch_isend_irecv`` (send to the next rank of the group,
 receive from the previous), with O(n_owned) buffers. The reference's
 ``lax.scan`` is a Python loop and its ``lax.cond`` an ``if`` on an
@@ -146,7 +148,7 @@ def maybe_renumber(core, label,
     return label, need
 
 
-# -- the ring variants (owned slices of range-sharded vertex state) ----------
+# -- the ring variants (owned slices of halo-sharded vertex state) -----------
 def _local_ranks(*keys) -> torch.Tensor:
     """Rank (int32) of each element under the stable lexsort of ``keys``
     (last key primary). Same-level labels are globally unique, so

@@ -17,11 +17,12 @@ The weighted engine runs ``weighted_core_fixpoint_pass`` instead: the
 same decrease-only shape with the weighted h-index in place of mcd. The
 host engine (``engine="host"``) removes through ``remove_batch``.
 
-The ``*_halo`` twins run the same fixpoints under range-sharded vertex
-state (``vertex_sharding="range"``): decisions on OWNED slices, edge
-passes over the batch's HALO working set (``vertex_layout.HaloSession``),
-labels placed by ``order.place_block_ring``, and every loop condition an
-all-reduced verdict (``session.any_owned``).
+The ``*_halo`` twins run the same fixpoints under halo-sharded vertex
+state (``vertex_sharding="range"`` / ``"halo"``): decisions on OWNED
+slices, edge passes over the batch's HALO working set
+(``vertex_layout.HaloSession``), labels placed by
+``order.place_block_ring``, and every loop condition an all-reduced
+verdict (``session.any_owned``).
 """
 from __future__ import annotations
 
@@ -176,21 +177,25 @@ def removal_fixpoint_halo(src_h, dst_h, valid, core_own, label_own, core_h,
     ``core_own``/``label_own`` the owned slices. A round: one halo-domain
     stats pass (``mcd_hi_dout``, kernel a on the card) completed into the
     owned slice by the session, the drop decision there, the ring label
-    commit, the dense (core, label) halo regather, and the all-reduced
+    commit, ONE halo refresh of (core, label) restricted to the dropped
+    owners (``session.refresh_values``: sparse under a ``frontier_cap``,
+    the dense regather otherwise or on overflow), and the all-reduced
     continue verdict. Every round runs the whole body, as the reference's
     loop does (the last one commits nothing).
 
     Returns ``(core_own, label_own, core_h, label_h, rounds, hi,
-    dout_same, max_frontier)``: ``hi``/``dout_same`` the terminating
-    round's OWNED promotion-seeding stats, ``max_frontier`` the LOCAL
-    per-round owned drop-count peak (the engine completes it).
+    dout_same, max_frontier, n_overflow)``: ``hi``/``dout_same`` the
+    terminating round's OWNED promotion-seeding stats, ``max_frontier``
+    the LOCAL per-round owned drop-count peak (the engine completes it),
+    ``n_overflow`` the rounds whose sparse refresh fell back to the
+    dense regather (an int32 scalar, the same on every rank).
     """
     hcap = session.halo_cap
     d_v = session.layout.n_shards
     dev = core_own.device
     hi = dout_same = session.zeros()
     fmax = torch.zeros((), dtype=torch.int32, device=dev)
-    rounds = 0
+    rounds = n_ovf = 0
     while True:
         mcd, hi, dout_same = G.mcd_hi_dout(
             src_h, dst_h, valid, core_h, label_h, hcap, session,
@@ -203,16 +208,18 @@ def removal_fixpoint_halo(src_h, dst_h, valid, core_own, label_own, core_h,
             new_core, label_own, drop, at_head=False, n_levels=n_levels,
             axis=session.axis, n_shards=d_v, note=_note,
         )
-        core_h = session.gather_values(new_core)
-        label_h = session.gather_values(label_own)
+        core_h, label_h, ovf = session.refresh_values(
+            new_core, label_own, drop, core_h, label_h)
+        n_ovf += ovf
         cont = session.any_owned(drop)
         core_own = new_core
         rounds += 1
         if not bool(cont):
             break
     rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
+    n_ovf = torch.tensor(n_ovf, dtype=torch.int32, device=dev)
     return (core_own, label_own, core_h, label_h, rounds, hi, dout_same,
-            fmax)
+            fmax, n_ovf)
 
 
 def _weighted_h_index_halo(src_h, dst_h, valid, w, core_own, core_h,

@@ -1,7 +1,8 @@
 """Multi-device core maintenance over ``torch.distributed``.
 
 The port of the reference's ``core/sharded.py``. The edge slots are
-sharded across the mesh's ``"data"`` axis: rank ``r`` holds slots
+sharded across every rank of the mesh: rank ``r`` (on a 2-axis
+``(d_e, d_v)`` mesh, ``r = e * d_v + v``) holds slots
 ``[r * local_cap, (r + 1) * local_cap)`` of the table, at offset 0 of
 its own tensors, and every batch is replicated. The vertex state's home
 is the layout (core/vertex_layout.py):
@@ -17,12 +18,23 @@ is the layout (core/vertex_layout.py):
   by one bounded all_gather and an owner scatter, decisions run on
   owned slices, labels place by the ring ``order.place_block_ring``.
   Bit for bit the replicated engine's cores and k-order (and labels,
-  but after a renumber with phantom vertices padding ``n``).
+  but after a renumber with phantom vertices padding ``n``);
+* ``vertex_sharding="halo"`` — the same halo machinery on the 2-axis
+  mesh of ``launch.mesh.make_edge_vertex_mesh(mesh_shape=(d_e, d_v))``:
+  the vertex ranges shard over the ``"data"`` (owner) axis only and are
+  replicated across ``"edge"``, and completed statistics gain one
+  all-reduce over the pure-edge group. Per-rank vertex memory is
+  O(n / d_v + halo).
+
+Under ``"range"`` and ``"halo"`` ``frontier_exchange="sparse"`` sends
+each round's changed owners as compacted ids in a ``frontier_cap``
+bucket instead of the dense halo regather, falling back to it in a
+round that overflows the cap: a bandwidth knob, bit for bit either way.
 
 The reference runs ``engine.batch_program`` inside a ``shard_map``; the
 port is SPMD: every rank calls the function ``make_sharded_apply``
-returns with the same batch, and ``batch_program`` runs on the rank's
-shard with ``axis`` the mesh's process group. Every loop condition of
+returns with the same batch, and the program runs on the rank's shard
+with process groups for the reference's axes. Every loop condition of
 the fixpoints reads completed values, so all ranks run the same rounds
 and issue the same collectives in the same order; a rank that skipped
 one would leave the others waiting.
@@ -38,25 +50,35 @@ from typing import Tuple
 import torch
 
 from . import graph_ops as G
+from ..launch.mesh import table_group
 from .engine import batch_program, batch_program_halo
 from .vertex_layout import (ReplicatedVertices, axis_index, axis_size,
                             make_layout)
 
 
-def axis_group(mesh, axis: str):
-    """The process group of ``mesh``'s axis ``axis``; a mesh without that
-    axis, or with a second one, is refused."""
+def axis_group(mesh, axis: str, vertex_sharding: str = "replicated"):
+    """The process group of ``mesh``'s axis ``axis``, with the
+    reference's checks of the mesh against the layout: the axis must
+    exist, a multi-axis mesh needs ``vertex_sharding="halo"`` and
+    ``"halo"`` a multi-axis mesh."""
     names = tuple(mesh.mesh_dim_names or ())
     if axis not in names:
         raise ValueError(
             f"mesh has axes {names}, no vertex/owner axis {axis!r}"
         )
-    if len(names) > 1:
+    if len(names) > 1 and vertex_sharding != "halo":
         raise ValueError(
             f"a multi-axis mesh (axes {names}) needs vertex_sharding="
-            "'halo' (ROADMAP Queue 1 B item 3) — the replicated and "
-            "range layouts complete statistics over ONE axis and would "
-            "silently drop the pure-edge partials"
+            "'halo' — the replicated and shared-axis range layouts "
+            "complete statistics over ONE axis and would silently drop "
+            "the pure-edge partials"
+        )
+    if len(names) < 2 and vertex_sharding == "halo":
+        raise ValueError(
+            "vertex_sharding='halo' needs a 2-axis (edge x vertex) mesh "
+            "— launch.mesh.make_edge_vertex_mesh(mesh_shape=(d_e, d_v)) "
+            "or mesh_shape=; a single shared axis is "
+            "vertex_sharding='range'"
         )
     return mesh.get_group(axis)
 
@@ -81,9 +103,15 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
     lane weights: ``(src, dst, valid, w, core, label, n_edges, ins_u,
     ins_v, ins_w, ins_ok, rm_u, rm_v, rm_ok) -> (src, dst, valid, w,
     core, label, n_edges, stats)``. Every rank calls it with the same
-    batch. Under ``vertex_sharding="range"`` ``core`` and ``label`` are
-    this rank's OWNED slices ``[n_owned]`` of the state padded to
-    ``n_owned * world`` (api.py pads and places them), and come back so.
+    batch. Under ``vertex_sharding="range"`` / ``"halo"`` ``core`` and
+    ``label`` are this rank's OWNED slices ``[n_owned]`` of the state
+    padded to ``n_owned * d_v`` (api.py pads and places them), and come
+    back so. ``"halo"`` takes the 2-axis mesh
+    (``make_edge_vertex_mesh(mesh_shape=(d_e, d_v))``): the table
+    collectives run over the table group of every rank
+    (``launch.mesh.table_group``), the vertex ones over ``axis`` (the
+    owner group), and the statistics gain one all-reduce over the
+    pure-edge group.
 
     ``local_active`` is the per-shard window: every edge pass runs over
     the first ``local_active`` slots of the rank's shard (the host sizes
@@ -93,30 +121,23 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
     back. ``None`` runs the whole shard.
 
     ``freelist`` picks the slot allocator's ranking (``"interleaved"`` |
-    ``"hierarchical"``, ``insert.freelist_alloc``); ``kernel_backend``
-    the statistics' implementation (``"torch"`` | ``"cuda"``: the
-    hand-written kernels compute the LOCAL partials, which the layout
-    completes as it does the torch path's, so the collectives are the
-    same). The 2-axis ``vertex_sharding="halo"`` is ROADMAP Queue 1 B
-    item 3 and ``frontier_exchange="sparse"`` item 4.
+    ``"hierarchical"``, ``insert.freelist_alloc``); ``frontier_exchange``
+    the halo refreshes under ``"range"`` / ``"halo"`` (``"bitmask"``,
+    the reference's name for the dense regather, or ``"sparse"`` with a
+    static ``frontier_cap`` >= 1: one engine a cap bucket, as a window);
+    ``kernel_backend`` the statistics' implementation (``"torch"`` |
+    ``"cuda"``: the hand-written kernels compute the LOCAL partials,
+    which the layout completes as it does the torch path's, so the
+    collectives are the same).
     """
-    group = axis_group(mesh, axis)
+    group = axis_group(mesh, axis, vertex_sharding)
     if frontier_exchange not in ("bitmask", "sparse"):
         raise ValueError(
             f"unknown frontier_exchange {frontier_exchange!r} "
             "(expected 'bitmask' or 'sparse')"
         )
-    if vertex_sharding == "halo":
-        raise NotImplementedError(
-            "vertex_sharding='halo' (the 2-axis edge x vertex mesh) is "
-            "ROADMAP Queue 1 B item 3; the port has 'replicated' and "
-            "'range'"
-        )
-    if vertex_sharding not in ("replicated", "range"):
-        raise ValueError(f"unknown vertex_sharding {vertex_sharding!r}")
-    if freelist not in ("interleaved", "hierarchical"):
-        raise ValueError(f"unknown freelist {freelist!r}")
-    if frontier_exchange == "sparse" and vertex_sharding == "replicated":
+    if frontier_exchange == "sparse" and vertex_sharding not in (
+            "range", "halo"):
         raise ValueError(
             "frontier_exchange='sparse' needs vertex_sharding='range' or "
             "'halo' (the replicated layout exchanges no frontier masks)"
@@ -126,17 +147,22 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
             f"frontier_exchange='sparse' needs frontier_cap >= 1, got "
             f"{frontier_cap}"
         )
-    if frontier_exchange == "sparse":
-        raise NotImplementedError(
-            "frontier_exchange='sparse' is ROADMAP Queue 1 B item 4; the "
-            "range engine runs the dense halo regather"
-        )
-    if frontier_cap != 0:
+    if frontier_exchange != "sparse" and frontier_cap != 0:
         raise ValueError(
             f"frontier_cap={frontier_cap} is only consumed by "
-            "frontier_exchange='sparse' — the dense exchange would "
+            "frontier_exchange='sparse' — the dense halo exchange would "
             "silently ignore it"
         )
+    if vertex_sharding not in ("replicated", "range", "halo"):
+        raise ValueError(f"unknown vertex layout {vertex_sharding!r}")
+    if freelist not in ("interleaved", "hierarchical"):
+        raise ValueError(f"unknown freelist {freelist!r}")
+    edge_axes = tuple(mesh.get_group(a) for a in mesh.mesh_dim_names
+                      if a != axis)
+    # table collectives (found flags, counts, the free-list ranking, the
+    # high-water mark) complete over EVERY rank the slots are sharded on
+    table_axis = table_group(mesh)
+    cap = frontier_cap if frontier_exchange == "sparse" else None
 
     def _win(shard_len: int) -> int:
         if local_active is None:
@@ -155,15 +181,14 @@ def make_sharded_apply(mesh, n: int, n_levels: int,
     def _program(*args, **kw):
         """The program body for this layout: the replicated one, or the
         halo one on OWNED core/label (``args[3]``, whose device the
-        layout's zeros take) with the same group as the table axis (the
-        shared single axis)."""
+        layout's zeros take)."""
         if vertex_sharding == "replicated":
             return batch_program(*args, axis=group, freelist=freelist,
                                  kernel_backend=kernel_backend, **kw)
-        layout = make_layout("range", n, group, axis_size(group),
-                             device=args[3].device)
-        return batch_program_halo(*args, table_axis=group, layout=layout,
-                                  freelist=freelist,
+        layout = make_layout(vertex_sharding, n, group, axis_size(group),
+                             cap, edge_axes, device=args[3].device)
+        return batch_program_halo(*args, table_axis=table_axis,
+                                  layout=layout, freelist=freelist,
                                   kernel_backend=kernel_backend, **kw)
 
     def apply(src, dst, valid, core, label, n_edges,

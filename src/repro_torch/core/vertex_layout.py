@@ -11,21 +11,27 @@ only its own slots of the table), and the layout completes them:
   over the mesh's ``"data"`` group (``axis``); ``axis=None`` is the
   single-device identity.
 
-* ``HaloShardedVertices`` (``vertex_sharding="range"``) — rank ``i``
-  OWNS the contiguous vertex range ``[i * n_owned, (i+1) * n_owned)`` and
-  keeps beyond it only a per-batch HALO working set: the vertices its
-  windowed slots and the batch lanes reference, in a pow2-capped buffer
-  (``HaloSession``). No rank holds an ``[n]`` vertex array: memory is
-  O(n / world + halo_cap). A round's statistics complete with one
-  ``all_gather`` of the halo-domain partials plus a local owner
-  scatter-add; the halo values are refreshed by one
-  ``reduce_scatter`` of the owners' contributions (the dense regather,
-  O(halo_cap) received); labels place by the ring
-  ``order.place_block_ring``. Integer arithmetic throughout, so the
-  cores and labels are bit for bit those of the replicated layout
-  (but for a renumber when phantom vertices pad ``n``: the ring ranks
-  them too, which offsets the labels and keeps the k-order, as the
-  reference's range engine does).
+* ``HaloShardedVertices`` (``vertex_sharding="range"`` and ``"halo"``)
+  — rank ``i`` of the owner group OWNS the contiguous vertex range
+  ``[i * n_owned, (i+1) * n_owned)`` and keeps beyond it only a
+  per-batch HALO working set: the vertices its windowed slots and the
+  batch lanes reference, in a pow2-capped buffer (``HaloSession``). No
+  rank holds an ``[n]`` vertex array: memory is O(n / d_v + halo_cap).
+  A round's statistics complete with one ``all_gather`` of the
+  halo-domain partials plus a local owner scatter-add and, on the
+  2-axis ``(d_e, d_v)`` mesh (``edge_axes``), one all-reduce over the
+  pure-edge group (``psum_edge``); the halo values are refreshed either
+  by one ``reduce_scatter`` of the owners' contributions (the dense
+  regather, O(halo_cap) received) or, with a ``frontier_cap``, by the
+  sparse exchange: all_gathers of each owner's count-prefixed,
+  compacted changed ids (and values), O(cap * d_v), falling back to the
+  dense regather in a round where any owner's frontier overflows the
+  cap. Labels place by the ring ``order.place_block_ring``. Integer
+  arithmetic throughout, so the cores and labels are bit for bit those
+  of the replicated layout (but for a renumber when phantom vertices
+  pad ``n``: the ring ranks them too, which offsets the labels and
+  keeps the k-order, as the reference's range engine does), whatever
+  the cap.
 
 The reference runs one program over a ``jax.sharding.Mesh``; the port
 is SPMD: every rank runs the same Python, and ``axis`` is a
@@ -37,9 +43,10 @@ one to one: ``psum`` -> ``all_reduce(SUM)``, ``pmax`` / ``pmin`` ->
 Masks and flags travel as int32 or uint8: gloo and NCCL do not both
 reduce ``bool``. The reference's ``lax.while_loop`` conditions become
 Python loops on an all-reduced verdict (``any_owned``), so every rank
-runs the same rounds and issues the same collectives in the same order.
-The 2-axis ``"halo"`` layout (``edge_axes``) is ROADMAP Queue 1 B item
-3, the sparse frontier exchange (``frontier_cap``) item 4.
+runs the same rounds and issues the same collectives in the same order;
+the reference's per-round ``lax.cond`` between the sparse exchange and
+its dense fallback becomes a Python branch on the gathered (so
+replicated) count column.
 
 Traffic accounting
 ------------------
@@ -47,10 +54,13 @@ Traffic accounting
 collective issued inside it, with the payload each rank RECEIVES. The
 reference records at trace time, once per traced loop body (so its log
 of a fixpoint is the per-round budget); the port records at call time,
-once per collective actually issued. The layout's records carry the
+once per collective actually issued, so a round records only the arm
+of the sparse exchange it took (the reference traces both and tags the
+fallback's ``branch="overflow"``). The layout's records carry the
 reference's op names and bytes (``psum``; ``gather_halo``,
-``regather``, ``gather_stats``, ``psum_scalar``, ``pmax_scalar``, and
-the ring's ``ppermute`` and ``pmin_scalar``); the table collectives of
+``regather``, ``gather_stats``, ``psum_edge``, ``gather_frontier``,
+``psum_scalar``, ``pmax_scalar``, and the ring's ``ppermute`` and
+``pmin_scalar``); the table collectives of
 the batch program, which the reference does not record, are
 ``"psum_table"`` (found flags and counts), ``"psum_vertex"`` (the range
 program's owned counts), ``"pmax_scalar"`` (the high-water mark) and
@@ -58,8 +68,8 @@ program's owned counts), ``"pmax_scalar"`` (the high-water mark) and
 
 ``record_shapes()`` records, for every vertex-domain tensor the halo
 layout and its session allocate, its op and the length of its vertex
-axis (``n_owned`` or ``halo_cap``): the memory claim of the range
-engine, read off the session itself.
+axis (``n_owned`` or ``halo_cap``): the memory claim of the halo
+engines, read off the session itself.
 """
 from __future__ import annotations
 
@@ -271,14 +281,23 @@ class HaloShardedVertices:
     batch lanes reference (``bind(halo_ids)`` opens a
     :class:`HaloSession`). ``n`` pads up to ``n_pad = n_owned *
     n_shards``; the phantom vertices past ``n`` hold zeros and no edge
-    or lane references them. ``vertex_sharding="range"`` builds it on
-    the one shared axis, with the dense halo regather (the reference's
-    ``edge_axes`` and ``frontier_cap`` are ROADMAP Queue 1 B items 3 and
-    4)."""
+    or lane references them.
+
+    ``edge_axes`` holds the process groups of the PURE-edge axes of a
+    2-axis mesh (``launch/mesh.py::make_edge_vertex_mesh``): statistics
+    then gain one all-reduce over each after the owner scatter. With
+    ``edge_axes=()`` the layout runs on the one shared axis, which is
+    what ``vertex_sharding="range"`` builds. ``frontier_cap`` (``None``:
+    dense) switches the per-round halo refreshes to the sparse
+    compacted-index exchange, O(cap * d_v) received, with the dense
+    regather as the fallback of a round whose frontier overflows the cap
+    on any owner: bit for bit the same either way."""
 
     n: int
     axis: Any  # the owner group (a torch.distributed process group)
     n_shards: int
+    frontier_cap: Optional[int] = None
+    edge_axes: tuple = ()  # the pure-edge process groups
     device: torch.device | str = "cpu"
     kind: str = dataclasses.field(default="halo", init=False)
 
@@ -383,10 +402,9 @@ class HaloSession:
         """Owned values -> this rank's halo values ``[halo_cap]`` by ONE
         reduce_scatter over the owner group: each rank contributes the
         rows of ``ids_all`` it owns (every id has exactly one owner) and
-        receives its own halo row — O(halo_cap), independent of n. The
-        halo's per-round refreshes of (core, label) and of owned masks
-        (as int32, ``> 0`` after) are this dense regather (the sparse
-        exchange is ROADMAP Queue 1 B item 4)."""
+        receives its own halo row — O(halo_cap), independent of n: the
+        batch's entry regather, the dense refreshes, and the sparse
+        exchange's fallback."""
         contrib = torch.where(self._mine, owned[self._safe],
                               torch.zeros((), dtype=owned.dtype,
                                           device=owned.device))
@@ -398,8 +416,9 @@ class HaloSession:
     def complete(self, stats: torch.Tensor) -> torch.Tensor:
         """Halo-domain partial stats ``[halo_cap, ...]`` -> exact OWNED
         stats ``[n_owned, ...]``: one all_gather over the owner group
-        (O(world * halo_cap)) and a local owner scatter-add; rows this
-        rank does not own add zeros."""
+        (O(d_v * halo_cap)) and a local owner scatter-add (rows this
+        rank does not own add zeros), then, on a 2-axis mesh, one
+        all-reduce over each pure-edge group (``psum_edge``)."""
         _note("gather_stats", self.layout.n_shards * _nbytes(stats))
         g = _gather_into(stats, self.axis)  # [world, halo_cap, ...]
         rest = tuple(stats.shape[1:])
@@ -409,8 +428,109 @@ class HaloSession:
         own = torch.zeros((self.n_owned,) + rest, dtype=stats.dtype,
                           device=stats.device)
         _rows("complete", self.n_owned)
-        return own.index_add_(0, self._safe.reshape(-1),
-                              g.reshape((-1,) + rest))
+        own.index_add_(0, self._safe.reshape(-1), g.reshape((-1,) + rest))
+        for group in self.layout.edge_axes:
+            own = psum(own, group, "psum_edge")  # in place: own is fresh
+        return own
+
+    # -- per-round halo refreshes --------------------------------------
+    def _sparse_payload(self, owned_mask: torch.Tensor):
+        """The wire format of the sparse exchange: ``[1 + cap]`` int32,
+        the owned changed count, then the global ids of the first
+        ``cap`` changed owned rows in order (``n_pad`` sentinels past
+        them); and each owned row's compaction position (``cap``, the
+        spare row, for a row not sent)."""
+        cap = self.layout.frontier_cap
+        count = owned_mask.sum(dtype=torch.int32).reshape(1)
+        pos = torch.cumsum(owned_mask, 0, dtype=torch.int32) - 1
+        gidx = torch.arange(self.n_owned, dtype=torch.int32,
+                            device=owned_mask.device) + self.layout._offset()
+        safe = torch.where(owned_mask & (pos < cap), pos, cap).long()
+        # the reference drops the unsent rows' writes past the end; here
+        # they land on one spare row, cut off after
+        buf = torch.full((cap + 1,), self.layout.n_pad, dtype=torch.int32,
+                         device=owned_mask.device)
+        buf[safe] = gidx
+        return torch.cat([count, buf[:cap]]), safe
+
+    def _halo_targets(self, flat_gidx: torch.Tensor) -> torch.Tensor:
+        """Halo positions (int64) of gathered global ids; sentinels and
+        ids outside my halo park on ``halo_cap``, one past the end."""
+        pos = self.locate(flat_gidx)
+        hit = (self.halo_ids[pos.long()] == flat_gidx) & (
+            flat_gidx < self.layout.n_pad)
+        return torch.where(hit, pos, self.halo_cap).long()
+
+    def _gather_frontier(self, x: torch.Tensor) -> torch.Tensor:
+        _note("gather_frontier", self.layout.n_shards * _nbytes(x))
+        return _gather_into(x, self.axis)
+
+    def _overflowed(self, g_idx: torch.Tensor) -> bool:
+        """Did any owner's frontier overflow the cap? Read off the
+        gathered count column, so every rank of the owner group decides
+        the same (one host read a refresh; owned values are replicated
+        across the pure-edge groups, so the whole mesh decides alike)."""
+        return bool(g_idx[:, 0].max() > self.layout.frontier_cap)
+
+    def _set_halo(self, halo: torch.Tensor, tgt: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+        """``halo`` with the rows ``tgt`` set to ``vals`` (a new tensor);
+        parked targets land on a spare row, cut off. Owners are
+        disjoint, so no real target repeats."""
+        out = torch.cat([halo, halo.new_zeros(1)])
+        out[tgt] = vals.to(halo.dtype)
+        _rows("refresh", self.halo_cap)
+        return out[:self.halo_cap]
+
+    def refresh_mask(self, owned_mask: torch.Tensor):
+        """Owned bool mask -> ``(halo mask [halo_cap], overflowed)``.
+        Dense (no ``frontier_cap``): one reduce_scatter of the mask as
+        int32. Sparse: one all_gather of the count-prefixed compacted
+        ids, O(cap * d_v), then a local scatter into the halo; where any
+        owner's count exceeds the cap, the dense regather instead
+        (``overflowed`` True). The same mask either way."""
+        if self.layout.frontier_cap is None:
+            return self._mask_dense(owned_mask), False
+        payload, _ = self._sparse_payload(owned_mask)
+        g = self._gather_frontier(payload)  # [d_v, cap + 1]
+        if self._overflowed(g):
+            return self._mask_dense(owned_mask), True
+        tgt = self._halo_targets(g[:, 1:].reshape(-1))
+        mask = torch.zeros(self.halo_cap, dtype=torch.bool,
+                           device=owned_mask.device)
+        ones = torch.ones(tgt.shape[0], dtype=torch.bool, device=tgt.device)
+        return self._set_halo(mask, tgt, ones), False
+
+    def _mask_dense(self, owned_mask: torch.Tensor) -> torch.Tensor:
+        return self.gather_values(owned_mask.to(torch.int32)) > 0
+
+    def refresh_values(self, core_own: torch.Tensor, label_own: torch.Tensor,
+                       changed_own: torch.Tensor, core_h: torch.Tensor,
+                       label_h: torch.Tensor):
+        """Post-commit halo refresh of (core, label), restricted to the
+        round's changed owners. Dense: two regathers of the full halo
+        values. Sparse: three all_gathers of the compacted (id, core,
+        label) columns (int32, int32, int64), written over the stale
+        halo; the dense regathers where any owner overflowed. Returns
+        ``(core_h, label_h, overflowed)``."""
+        if self.layout.frontier_cap is None:
+            return (self.gather_values(core_own),
+                    self.gather_values(label_own), False)
+        payload, safe = self._sparse_payload(changed_own)
+        cap = self.layout.frontier_cap
+        cbuf = core_own.new_zeros(cap + 1)
+        cbuf[safe] = core_own
+        lbuf = label_own.new_zeros(cap + 1)
+        lbuf[safe] = label_own
+        g_i = self._gather_frontier(payload)      # [d_v, cap + 1]
+        g_c = self._gather_frontier(cbuf[:cap])   # [d_v, cap]
+        g_l = self._gather_frontier(lbuf[:cap])   # [d_v, cap]
+        if self._overflowed(g_i):
+            return (self.gather_values(core_own),
+                    self.gather_values(label_own), True)
+        tgt = self._halo_targets(g_i[:, 1:].reshape(-1))
+        return (self._set_halo(core_h, tgt, g_c.reshape(-1)),
+                self._set_halo(label_h, tgt, g_l.reshape(-1)), False)
 
     # -- scalar completions --------------------------------------------
     def any_owned(self, owned_mask: torch.Tensor) -> torch.Tensor:
@@ -438,11 +558,11 @@ def make_layout(kind: str, n: int, axis, n_shards: int = 1,
                 device: torch.device | str = "cpu") -> VertexLayout:
     """Factory keyed by the public ``vertex_sharding`` name, with the
     reference's signature and checks (``device`` added: where the
-    layout's zeros live). ``"range"`` builds :class:`HaloShardedVertices`
-    on the one shared axis. A misconfiguration raises ``ValueError``
-    here, at construction; the 2-axis ``"halo"`` layout and a sparse
-    ``frontier_cap`` raise ``NotImplementedError`` (ROADMAP Queue 1 B
-    items 3 and 4)."""
+    layout's zeros live; ``axis`` and ``edge_axes`` are process groups).
+    ``"range"`` and ``"halo"`` both build :class:`HaloShardedVertices`:
+    ``"range"`` on the one shared axis, ``"halo"`` with the pure-edge
+    groups of a 2-axis mesh. A misconfiguration raises ``ValueError``
+    here, at construction."""
     if kind == "replicated":
         if n_shards != 1:
             raise ValueError(
@@ -483,15 +603,6 @@ def make_layout(kind: str, n: int, axis, n_shards: int = 1,
                 "pure-edge axes (make_edge_vertex_mesh); for the "
                 "shared-axis layout use vertex_sharding='range'"
             )
-        if edge_axes:
-            raise NotImplementedError(
-                "the 2-axis 'halo' layout (edge_axes) is ROADMAP Queue 1 B "
-                "item 3; the port has vertex_sharding='range'"
-            )
-        if frontier_cap is not None:
-            raise NotImplementedError(
-                "the sparse frontier exchange (frontier_cap) is ROADMAP "
-                "Queue 1 B item 4; the port has the dense halo regather"
-            )
-        return HaloShardedVertices(n, axis, n_shards, device=device)
+        return HaloShardedVertices(n, axis, n_shards, frontier_cap,
+                                   tuple(edge_axes), device=device)
     raise ValueError(f"unknown vertex layout {kind!r}")

@@ -325,11 +325,21 @@ def nccl_mesh(tmp_path_factory):
         dist.destroy_process_group()
 
 
-def _world_of_one(mesh, graph, stream, weighted, vertex_sharding):
+@pytest.fixture(scope="module")
+def nccl_mesh2(nccl_mesh):
+    """The 2-axis ``(1, 1)`` edge x vertex mesh on the same world."""
+    from repro_torch.launch.mesh import make_edge_vertex_mesh
+    return make_edge_vertex_mesh(mesh_shape=(1, 1))
+
+
+def _world_of_one(mesh, graph, stream, weighted, vertex_sharding,
+                  **exchange):
     """The sharded engine on a world of one NCCL rank with
     ``kernel_backend="cuda"`` against the torch backend, batch by batch
     (stats, cores, labels, slot table, weights), and its cores and
-    labels against the unified engine's. Returns the launches."""
+    labels against the unified engine's. ``exchange``: the
+    ``frontier_exchange`` / ``frontier_cap`` fields. Returns the
+    launches."""
     g = {"er": lambda: erdos_renyi(500, 2500, seed=3),
          "rmat": lambda: rmat(9, 3000, seed=3),
          "sparse": lambda: erdos_renyi(4096, 300, seed=3)}[graph]()
@@ -338,7 +348,8 @@ def _world_of_one(mesh, graph, stream, weighted, vertex_sharding):
     events = (mixed_stream(g, 5, 80, seed=4) if stream == "mixed"
               else churn_stream(g, 5, 80, seed=4))
     kw = dict(weighted=weighted, weights=w0)
-    sk = dict(engine="sharded", mesh=mesh, vertex_sharding=vertex_sharding)
+    sk = dict(engine="sharded", mesh=mesh, vertex_sharding=vertex_sharding,
+              **exchange)
     a = CoreMaintainer.from_graph(g, **sk, **kw)
     b = CoreMaintainer.from_graph(g, **sk, kernel_backend="torch", **kw)
     u = CoreMaintainer.from_graph(g, kernel_backend="torch", **kw)
@@ -397,6 +408,31 @@ def test_range_world_of_one_cuda_matches_torch(nccl_mesh, graph, stream,
     (``n = halo_cap``, below n on the sparse graph), b and c never, and
     everything equals the torch backend and the unified engine."""
     _world_of_one(nccl_mesh, graph, stream, weighted, "range")
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unit", "weighted"])
+@pytest.mark.parametrize("graph", ["er", "sparse"])
+@pytest.mark.parametrize("exchange", ["dense", "cap1", "planned"])
+def test_halo_world_of_one_cuda_matches_torch(nccl_mesh2, graph, exchange,
+                                              weighted):
+    """``vertex_sharding="halo"`` on the ``(1, 1)`` mesh of one NCCL rank
+    (the ``psum_edge`` all-reduce over a one-rank edge group, the table
+    group), dense, sparse with a cap of 1 (overflowing) and with the
+    planned cap: as the range test above."""
+    fx = ({} if exchange == "dense" else
+          dict(frontier_exchange="sparse",
+               frontier_cap=1 if exchange == "cap1" else 0))
+    _world_of_one(nccl_mesh2, graph, "mixed", weighted, "halo", **fx)
+
+
+@pytest.mark.parametrize("cap", [1, 8])
+@pytest.mark.parametrize("graph", ["er", "rmat"])
+def test_sparse_range_world_of_one_cuda_matches_torch(nccl_mesh, graph, cap):
+    """``frontier_exchange="sparse"`` on the range engine with pinned
+    caps, unweighted: as the range test above."""
+    _world_of_one(nccl_mesh, graph, "churn", False, "range",
+                  frontier_exchange="sparse", frontier_cap=cap)
 
 
 def test_cpu_tensors_never_launch_wsum():

@@ -1,7 +1,8 @@
-"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
-``scripts/profile_burst.py`` and ``examples/stream_maintenance_torch.py``
-import neither ``jax`` nor the reference package ``repro``, and the
-port's entry points run on the card unless the CPU is asked for."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py``, the
+``scripts/`` that time and profile it and
+``examples/stream_maintenance_torch.py`` import neither ``jax`` nor the
+reference package ``repro``, and the port's entry points run on the card
+unless the CPU is asked for."""
 import ast
 import os
 import subprocess
@@ -59,7 +60,8 @@ def _imports(path: Path):
        ROOT / "examples" / "stream_maintenance_torch.py"]
     + [ROOT / "scripts" / f for f in ("profile_burst.py",
                                       "time_attention.py",
-                                      "time_coremaint.py")],
+                                      "time_coremaint.py",
+                                      "time_kernel_api.py")],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_import_in_source(path):

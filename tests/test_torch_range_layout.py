@@ -2,8 +2,8 @@
 ``HaloShardedVertices``, ``HaloSession``, the ring placement) on a world
 of ONE gloo rank, in process, against the reference's: the session's
 round trips (``gather_values``, ``locate``, ``complete``, ``add_at``,
-``any_owned``) on the reference's own case, the ``make_layout`` checks
-and refusals, the collectives of one removal round, one promotion round
+``any_owned``) on the reference's own case, the ``make_layout`` checks,
+the collectives of one removal round, one promotion round
 and one weighted bisection step against the reference's traced
 ``record_traffic`` (op and bytes), the ring placement against
 ``place_block``, the dispatch of ``kernel_backend="cuda"`` at halo
@@ -143,9 +143,10 @@ def test_locate_keeps_src_runs(group):
 
 
 def test_make_layout_checks_and_refusals(group):
-    """The reference's construction-time checks, and the two parts the
-    port does not have yet (the 2-axis layout, the sparse exchange)
-    refused by name."""
+    """The reference's construction-time checks; the 2-axis layout (with
+    pure-edge groups) and the sparse exchange (with a ``frontier_cap``)
+    build, and a mesh that does not fit the layout is refused by
+    ``make_sharded_apply``."""
     lay = make_layout("range", 10, group, 4)
     assert (lay.kind, lay.n_owned, lay.n_pad) == ("halo", 3, 12)
     for args, exc, match in [
@@ -157,17 +158,17 @@ def test_make_layout_checks_and_refusals(group):
              "edge_axes"),
             (("range", 10, group, 2, 0), ValueError, "frontier_cap"),
             (("range", 10, group, 2, None, ("edge",)), ValueError, "halo"),
-            (("halo", 10, group, 2), ValueError, "edge axes"),
-            (("halo", 10, group, 2, None, ("edge",)), NotImplementedError,
-             "B item 3"),
-            (("range", 10, group, 2, 8), NotImplementedError, "B item 4")]:
+            (("halo", 10, group, 2), ValueError, "edge axes")]:
         with pytest.raises(exc, match=match):
             make_layout(*args)
-    with pytest.raises(NotImplementedError, match="B item 4"):
-        make_sharded_apply(port_mesh.make_edge_mesh(), 10, 12,
-                           vertex_sharding="range",
-                           frontier_exchange="sparse", frontier_cap=8)
-    with pytest.raises(NotImplementedError, match="B item 3"):
+    halo = make_layout("halo", 10, group, 2, None, (group,))
+    assert (halo.edge_axes, halo.frontier_cap) == ((group,), None)
+    sparse = make_layout("range", 10, group, 2, 8)
+    assert (sparse.edge_axes, sparse.frontier_cap) == ((), 8)
+    assert callable(make_sharded_apply(
+        port_mesh.make_edge_mesh(), 10, 12, vertex_sharding="range",
+        frontier_exchange="sparse", frontier_cap=8))
+    with pytest.raises(ValueError, match="2-axis"):
         make_sharded_apply(port_mesh.make_edge_mesh(), 10, 12,
                            vertex_sharding="halo")
 

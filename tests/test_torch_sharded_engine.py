@@ -331,8 +331,16 @@ def test_configuration_errors(mesh, monkeypatch):
     for kw, exc, match in [
             (dict(engine="unified", vertex_sharding="range"),
              ValueError, "engine='sharded'"),
-            (dict(engine="sharded", vertex_sharding="halo"),
-             NotImplementedError, "B item 3"),
+            (dict(engine="sharded", vertex_sharding="halo", mesh=mesh),
+             ValueError, "2-axis"),
+            (dict(engine="sharded", vertex_sharding="range",
+                  mesh_shape=(1, 1)), ValueError, "mesh_shape"),
+            (dict(engine="sharded", vertex_sharding="halo", mesh=mesh,
+                  mesh_shape=(1, 1)), ValueError, "not both"),
+            (dict(engine="sharded", frontier_exchange="sparse"),
+             ValueError, "vertex_sharding='range' or 'halo'"),
+            (dict(engine="sharded", vertex_sharding="range",
+                  frontier_cap=8), ValueError, "frontier_cap"),
             (dict(engine="unified", mesh=mesh), ValueError, "mesh="),
             (dict(freelist="hierarchical"), ValueError, "engine='sharded'"),
             (dict(engine="sharded", freelist="bogus"), ValueError,
@@ -357,8 +365,15 @@ def test_configuration_errors(mesh, monkeypatch):
         make_sharded_apply(mesh, 10, 12, frontier_exchange="sparse")
     with pytest.raises(ValueError, match="ranks"):
         port_mesh.make_edge_mesh(n_devices=3)
-    with pytest.raises(NotImplementedError, match="B item 3"):
-        port_mesh.make_edge_vertex_mesh(mesh_shape=(1, 1))
+    m2 = port_mesh.make_edge_vertex_mesh(mesh_shape=(1, 1))
+    assert (m2.mesh_dim_names, tuple(m2.mesh.shape)) == (("edge", "data"),
+                                                         (1, 1))
+    assert port_mesh.table_group(m2) is port_mesh.table_group(m2)
+    for shape, match in [((2, 2), "needs 4 devices"), ((0, 1), "positive")]:
+        with pytest.raises(ValueError, match=match):
+            port_mesh.make_edge_vertex_mesh(mesh_shape=shape)
+    with pytest.raises(ValueError, match="vertex_sharding='halo'"):
+        make_sharded_apply(m2, 10, 12)
     assert make_layout("replicated", 10, None) == ReplicatedVertices(10)
     with pytest.raises(ValueError, match="unknown vertex layout"):
         make_layout("bogus", 10, None)

@@ -5,7 +5,8 @@ rank 0 alone printing and writing the checkpoints between barriers,
 ``--verify``'s collectives on every rank, a simulated crash and the
 resume of every rank from the checkpoint (which both packages load on
 one device). ``--standalone`` rendezvous binds a free localhost port of
-its own, so parallel test workers do not collide."""
+its own, so parallel test workers do not collide. The halo engine runs
+on 4 ranks as a 2x2 mesh with the sparse exchange."""
 import os
 import subprocess
 import sys
@@ -22,10 +23,10 @@ SMALL = ["--device", "cpu", "--n", "200", "--m", "800", "--batches", "6",
 BZ_OK = "final cores verified against BZ ✓"
 
 
-def torchrun(tmp_path, *args, timeout=300):
+def torchrun(tmp_path, *args, timeout=300, ranks=RANKS):
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(RANKS), str(EXAMPLE), *SMALL, "--ckpt",
+         "--nproc-per-node", str(ranks), str(EXAMPLE), *SMALL, "--ckpt",
          str(tmp_path / "ckpt.npz"), *args],
         capture_output=True, text=True, timeout=timeout, cwd=tmp_path,
         env=dict(os.environ, OMP_NUM_THREADS="1"),
@@ -55,12 +56,33 @@ def test_torchrun_range_mixed_verify(tmp_path):
     assert out.count(BZ_OK) == 1
 
 
-def test_halo_vertex_sharding_is_refused_by_name(tmp_path):
-    out = subprocess.run(
-        [sys.executable, str(EXAMPLE), *SMALL, "--vertex-sharding", "halo"],
-        capture_output=True, text=True, timeout=120, cwd=tmp_path)
+def test_torchrun_halo_sparse_verify(tmp_path):
+    """``--vertex-sharding halo --mesh-shape 2x2 --frontier-exchange
+    sparse`` on 4 ranks: two edge rows of two owners each, the planned
+    sparse cap; the gathered cores equal BZ."""
+    rc, out, err = torchrun(tmp_path, "--vertex-sharding", "halo",
+                            "--mesh-shape", "2x2", "--frontier-exchange",
+                            "sparse", "--mixed", "--verify", ranks=4)
+    assert rc == 0, err
+    assert ("shards=4 vertex_sharding=halo mesh_shape=2x2 "
+            "frontier_exchange=sparse") in out
+    assert out.count("[batch ") == 6 and out.count("max_frontier=") == 6
+    assert out.count(BZ_OK) == 1
+
+
+@pytest.mark.parametrize("args,message", [
+    (("--mesh-shape", "2x2"), "--mesh-shape needs --vertex-sharding halo"),
+    (("--vertex-sharding", "halo", "--mesh-shape", "2by2"),
+     "--mesh-shape must look like 4x2"),
+    (("--frontier-exchange", "sparse"),
+     "--frontier-exchange sparse needs --vertex-sharding range or halo")],
+    ids=["mesh-shape-without-halo", "mesh-shape-syntax", "sparse-replicated"])
+def test_cli_refuses_inconsistent_flags(tmp_path, args, message):
+    out = subprocess.run([sys.executable, str(EXAMPLE), *SMALL, *args],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
     assert out.returncode == 2
-    assert "ROADMAP Queue 1 B item 3" in out.stderr
+    assert message in out.stderr
 
 
 def test_torchrun_weighted_window_verify(tmp_path):
