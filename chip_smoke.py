@@ -5,7 +5,8 @@ its plain PyTorch version, and drives the main paths — one mixed batch
 at a time through ``CoreMaintainer.apply_batch`` on the unified engine,
 unweighted and weighted, on the host engine, and on the sharded engine
 (replicated and range-sharded vertex state) over a world of one NCCL
-rank — at full width.
+rank — at full width, and serves the GNN stack (PNA, GIN, DimeNet,
+NequIP) at ``full()`` width on the GNN cells.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -132,6 +133,24 @@ Phases:
      ``halo_launches`` (passes i / ii), and the ``mcd_hi_dout`` /
      ``hi_dout`` rows' ``launches`` are phase 8's.
 
+  9. (run after phase 4, before 4b) the GNN stack at ``full()`` width,
+     TF32 off, on ``GNN_SHAPES``' cells, each forward the median of 5
+     CUDA-event walls after a warm-up with ``max_memory_allocated``
+     reset first: PNA on ``load_cora_like()`` (``full_graph_sm``) and
+     on ``ogb_products`` at full size (2,449,408 nodes, 61,859,328
+     edges, ``launch/steps.py``'s draws, features drawn on the card;
+     its peak checked at most 2.25 ``[E, 75]`` tensors over the
+     inputs); GIN on a ``NeighborSampler(g, (15, 10))`` block of phase
+     4's graph around 1,024 seeds drawn with ``core_sampling_weights``
+     of phase 4's final maintainer (validity checked against ``g``),
+     features of width 602; DimeNet (float32 and bfloat16) and NequIP
+     energy and forces on ``random_molecule_batch(128, 30, 64)`` with
+     ``build_triplets``' 16,384 triplets. Each output against the same
+     module moved to the CPU at the tier-1 tests' tolerances
+     (``ogb_products``: two card forwards); NequIP under a seeded
+     rotation (``phase_gnn``'s docstring). One line a model and cell:
+     wall, peak memory, nodes, edges, triplets.
+
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
 
@@ -189,6 +208,7 @@ D_FEAT = 100              # GNN_SHAPES ogb_products d_feat
 FM_BATCH = 262_144        # RECSYS_SHAPES serve_bulk
 ATTN = dict(b=1, h=28, hkv=4, s=4096, d=128)  # configs/qwen2_7b.py heads
 SERVE_CALLS = 5           # timed serving calls a cell, after a warm-up
+GNN_SEEDS = 1024          # GNN_SHAPES minibatch_lg batch_nodes (phase 9)
 FP32_PEAK = 67e12         # float32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12        # bfloat16 tensor-core FLOP/s, dense
 NO_LIBRARY = {
@@ -1598,6 +1618,307 @@ def phase_attention_kernel(device, iters: int):
     return rows, keep
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the GNN stack at full() width on GNN_SHAPES's cells
+# ---------------------------------------------------------------------------
+def _pad512(x: int) -> int:
+    return -(-x // 512) * 512
+
+
+def ogb_products_batch(device, cell):
+    """``GNN_SHAPES``' ``ogb_products`` cell (``cell``: its params) at
+    full size as ``launch/steps.py`` draws it: nodes and directed edges
+    each padded to a multiple of 512, senders and receivers uniform from
+    ``default_rng(0)``, self-loops masked, ``d_feat`` normal features
+    from a seeded generator on ``device``; one graph."""
+    import torch
+    from repro_torch.models import gnn as G
+
+    n, e = _pad512(cell["n_nodes"]), _pad512(cell["n_edges"])
+    rng = np.random.default_rng(0)
+    snd = torch.from_numpy(rng.integers(0, n, size=e)).to(device)
+    rcv = torch.from_numpy(rng.integers(0, n, size=e)).to(device)
+    feat = torch.randn((n, cell["d_feat"]), device=device,
+                       generator=torch.Generator(device).manual_seed(0))
+    return G.GraphBatch(
+        node_feat=feat, senders=snd, receivers=rcv, edge_mask=snd != rcv,
+        node_mask=torch.ones(n, dtype=torch.bool, device=device),
+        graph_id=torch.zeros(n, dtype=torch.int64, device=device),
+        n_graphs=1)
+
+
+def gnn_seeds(m, n_seeds: int) -> np.ndarray:
+    """``n_seeds`` distinct vertices drawn with ``core_sampling_weights``
+    of a maintainer (``default_rng(0)``): the GraphSAGE seeds the
+    maintained cores bias toward dense regions."""
+    from repro_torch.core.applications import core_sampling_weights
+
+    w = core_sampling_weights(m)
+    return np.random.default_rng(0).choice(m.n, size=n_seeds, replace=False,
+                                           p=w)
+
+
+def gnn_time(fn) -> tuple:
+    """``(median ms, max_memory_allocated, warm-up output, last output)``
+    of ``fn``: the peak statistics reset first, then one warm-up call and
+    ``SERVE_CALLS`` calls timed with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = fn()
+    ts = []
+    for _ in range(SERVE_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ts.append(start.elapsed_time(end))
+    return float(np.median(ts)), torch.cuda.max_memory_allocated(), first, out
+
+
+def block_edges_in_graph(g, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Whether each ``(a[i], b[i])`` is an edge of the CSR graph ``g``,
+    looked up in the neighbour lists of the rows ``a`` touches."""
+    rows = np.unique(a)
+    start = g.indptr[rows]
+    cnt = g.indptr[rows + 1] - start
+    idx = np.repeat(start - np.cumsum(cnt) + cnt, cnt) + np.arange(cnt.sum())
+    keys = np.repeat(rows, cnt) * g.n + g.indices[idx]
+    return np.isin(a.astype(np.int64) * g.n + b, keys)
+
+
+def phase_gnn(device, g, seeds) -> None:
+    """Phase 9: the GNN stack's forwards on the card at ``full()`` width
+    on ``GNN_SHAPES``' cells, each against the same module moved to the
+    CPU (``ogb_products``: against a second card forward). Tolerances are
+    the tier-1 tests' (``tests/test_torch_gnn_*.py``): GIN, DimeNet
+    float32, NequIP energies and forces rtol/atol 1e-4; DimeNet bfloat16
+    3e-2; PNA float32 rtol/atol 1e-4 on the rows
+    ``pna_conditioned_rows`` names, and on the rest (fed by a node of
+    in-degree 0 or 1) the card's largest absolute error against the CPU's
+    float64 output at most 3x the CPU float32 output's (floored at 1e-6
+    of max |logit|); ``ogb_products``' two forwards rtol/atol 1e-4 on the
+    conditioned rows, within 1e-4 of max |logit| on the rest. NequIP under a seeded rotation: at full depth the card's
+    energies and forces equal the CPU's (the reference's 2x2->2 path is
+    not equivariant from 3 layers on); at the reference's test depth (2
+    layers, full width) the energy is invariant and the forces
+    equivariant at ``tests/test_models.py``'s tolerances."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import dimenet as dimenet_cfg
+    from repro_torch.configs import gin_tu as gin_cfg
+    from repro_torch.configs import nequip as nequip_cfg
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.data.graphs import load_cora_like, random_molecule_batch
+    from repro_torch.graph.sampler import NeighborSampler
+    from repro_torch.models import gnn as G
+
+    t_phase = time.perf_counter()
+    cells = {c.name: c.params for c in GNN_SHAPES}
+
+    def weights():  # drawn on the host from one seed, copied to the card
+        return torch.Generator().manual_seed(0)
+
+    def on_cpu(model):
+        return copy.deepcopy(model).to("cpu")
+
+    def report(model, cell, ms, peak, nodes, edges, triplets, extra):
+        log(f"phase 9 {model} {cell}: wall_ms={ms:.4f} "
+            f"max_memory_allocated={peak} nodes={nodes} edges={edges} "
+            f"triplets={triplets} {extra}")
+
+    def finite(x, shape, where):
+        check(tuple(x.shape) == tuple(shape) and x.dtype == torch.float32
+              and bool(torch.isfinite(x).all()),
+              f"phase 9 {where}: output {tuple(x.shape)} {x.dtype} is not "
+              f"finite float32 of shape {tuple(shape)}")
+
+    def close(got, want, tol, where):
+        err = float((got.double() - want.double()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"phase 9 {where}: the outputs differ (max abs err {err}, "
+              f"rtol/atol {tol})")
+        return err
+
+    # PNA full() on full_graph_sm: load_cora_like
+    cell = cells["full_graph_sm"]
+    cfg = pna_cfg.full()
+    _, batch, _ = load_cora_like(device=device)
+    n, e = batch.node_feat.shape[0], batch.senders.shape[0]
+    check(batch.node_feat.shape == (cell["n_nodes"], cell["d_feat"]),
+          "phase 9 pna full_graph_sm: load_cora_like's shape")
+    model = G.pna_init(cfg, weights(), device=device)
+    with torch.no_grad():
+        ms, peak, _, got = gnn_time(lambda: model(batch))
+        finite(got, (n, cfg.n_classes), "pna full_graph_sm")
+        cpu, b_cpu = on_cpu(model), batch.to("cpu")
+        want32 = cpu(b_cpu)
+        want64 = cpu.double()(dataclasses.replace(
+            b_cpu, node_feat=b_cpu.node_feat.double()))
+    got = got.cpu()
+    ok = G.pna_conditioned_rows(b_cpu, cfg.n_layers)
+    check(bool(ok.any()), "phase 9 pna full_graph_sm: no conditioned row")
+    err_ok = close(got[ok], want32[ok], 1e-4,
+                   f"pna full_graph_sm ({int(ok.sum())} conditioned rows)")
+    ref_err = float((want32.double() - want64)[~ok].abs().max())
+    err = float((got.double() - want64)[~ok].abs().max())
+    limit = 3 * max(ref_err, 1e-6 * float(want64.abs().max()))
+    check(err <= limit, f"phase 9 pna full_graph_sm: card error {err} "
+          f"against float64 over {limit} (3x the CPU float32 error)")
+    report("pna", "full_graph_sm", ms, peak, n, e, 0,
+           f"conditioned_rows={int(ok.sum())} max_abs_err_vs_cpu_on_them="
+           f"{err_ok} other rows: card_err_vs_f64={err} "
+           f"cpu_f32_err_vs_f64={ref_err}")
+    del model, cpu, batch, b_cpu, got
+
+    # PNA full() on ogb_products at full size, launch/steps.py's draws
+    cell = cells["ogb_products"]
+    cfg = dataclasses.replace(pna_cfg.full(), d_in=cell["d_feat"])
+    t0 = time.perf_counter()
+    batch = ogb_products_batch(device, cell)
+    n, e = batch.node_feat.shape[0], batch.senders.shape[0]
+    sync(device)
+    t_data = time.perf_counter() - t0
+    model = G.pna_init(cfg, weights(), device=device)
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        ms, peak, first, got = gnn_time(lambda: model(batch))
+    finite(got, (n, cfg.n_classes), "pna ogb_products")
+    ok = G.pna_conditioned_rows(batch, cfg.n_layers)
+    n_ok = int(ok.sum())
+    diff_ok = close(got[ok], first[ok], 1e-4,
+                    f"pna ogb_products two forwards ({n_ok} conditioned "
+                    f"rows)")
+    diff = float((got[~ok] - first[~ok]).abs().max()) if n_ok < n else 0.0
+    scale = float(first.abs().max())
+    check(diff <= 1e-4 * scale, f"phase 9 pna ogb_products: two card "
+          f"forwards differ by {diff} (max |logit| {scale})")
+    # at most two [E, d_hidden] tensors live (msg, msg * msg), plus the
+    # layer's [N, d_hidden] ones
+    msg_bytes = e * cfg.d_hidden * 4
+    check(peak - base <= 2.25 * msg_bytes, f"phase 9 pna ogb_products: "
+          f"{(peak - base) / msg_bytes:.3f} message tensors over the inputs")
+    report("pna", "ogb_products", ms, peak, n, e, 0,
+           f"live_edges={int(batch.edge_mask.sum())} "
+           f"edge_tensor_bytes={msg_bytes} peak_over_inputs_in_edge_tensors"
+           f"={(peak - base) / msg_bytes:.3f} conditioned_rows={n_ok} "
+           f"two_forwards_max_diff={diff_ok} / {diff} "
+           f"max_abs_logit={scale} data_s={t_data:.1f}")
+    del model, batch, first, got, ok
+    torch.cuda.empty_cache()
+
+    # GIN full() on a minibatch_lg block of phase 4's graph, seeded by the
+    # final maintainer's core_sampling_weights
+    cell = cells["minibatch_lg"]
+    check(len(seeds) == cell["batch_nodes"], "phase 9: seed count")
+    t0 = time.perf_counter()
+    blk = NeighborSampler(g, fanouts=cell["fanout"], seed=0).sample(seeds)
+    t_sample = time.perf_counter() - t0
+    mult = int(np.prod([f + 1 for f in cell["fanout"]]))
+    n_cap, e_cap = len(seeds) * mult, 2 * len(seeds) * mult
+    check(blk.node_ids.shape == (n_cap,) and blk.senders.shape == (e_cap,),
+          "phase 9 gin minibatch_lg: block capacities")
+    live = blk.edge_mask
+    s_loc, r_loc = blk.senders[live], blk.receivers[live]
+    check(bool(blk.node_mask[s_loc].all() and blk.node_mask[r_loc].all()),
+          "phase 9 gin minibatch_lg: a live edge joins a padded node")
+    check(bool(block_edges_in_graph(g, blk.node_ids[s_loc],
+                                    blk.node_ids[r_loc]).all()),
+          "phase 9 gin minibatch_lg: a live edge is not an edge of g")
+    check(int(blk.seed_mask.sum()) == len(np.unique(seeds)),
+          "phase 9 gin minibatch_lg: seed positions")
+    feat = torch.randn((n_cap, cell["d_feat"]), device=device,
+                       generator=torch.Generator(device).manual_seed(1))
+    batch = G.GraphBatch.from_block(blk, feat, device=device)
+    cfg = dataclasses.replace(gin_cfg.full(), d_in=cell["d_feat"])
+    model = G.gin_init(cfg, weights(), device=device)
+    with torch.no_grad():
+        ms, peak, _, got = gnn_time(lambda: model(batch))
+        finite(got, (1, cfg.n_classes), "gin minibatch_lg")
+        want = on_cpu(model)(batch.to("cpu"))
+    err = close(got.cpu(), want, 1e-4, "gin minibatch_lg")
+    report("gin-tu", "minibatch_lg", ms, peak, n_cap, e_cap, 0,
+           f"live_nodes={int(blk.node_mask.sum())} "
+           f"live_edges={int(live.sum())} sample_s={t_sample:.1f} "
+           f"max_abs_err_vs_cpu={err}")
+    del model, batch, feat, got
+
+    # DimeNet full() (float32, then bfloat16) and NequIP full() on molecule
+    cell = cells["molecule"]
+    batch = random_molecule_batch(n_mols=cell["batch"],
+                                  n_atoms=cell["n_nodes"],
+                                  n_edges=cell["n_edges"], device=device)
+    b_cpu = batch.to("cpu")
+    n, e = batch.node_feat.shape[0], batch.senders.shape[0]
+    tri = G.build_triplets(b_cpu.senders.numpy(), b_cpu.receivers.numpy(),
+                           b_cpu.edge_mask.numpy(), 2 * e)
+    tri_dev, tri_cpu = G.triplet_tensors(tri, device), G.triplet_tensors(
+        tri, "cpu")
+    n_tri = int(tri[2].sum())
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        cfg = dataclasses.replace(dimenet_cfg.full(), msg_dtype=dt)
+        model = G.dimenet_init(cfg, weights(), device=device)
+        with torch.no_grad():
+            ms, peak, _, got = gnn_time(lambda: model(batch, *tri_dev))
+            finite(got, (cell["batch"],), f"dimenet molecule {dt}")
+            want = on_cpu(model)(b_cpu, *tri_cpu)
+        err = close(got.cpu(), want, tol, f"dimenet molecule {dt}")
+        report("dimenet", f"molecule[{str(dt)[6:]}]", ms, peak, n, e,
+               2 * e, f"live_edges={int(batch.edge_mask.sum())} "
+               f"live_triplets={n_tri} max_abs_err_vs_cpu={err}")
+        del model, got
+
+    model = G.nequip_init(nequip_cfg.full(), weights(), device=device)
+    ms, peak, _, (energy, forces) = gnn_time(
+        lambda: model.energy_forces(batch))
+    finite(energy, (cell["batch"],), "nequip molecule energy")
+    finite(forces, (n, 3), "nequip molecule forces")
+    e_cpu, f_cpu = on_cpu(model).energy_forces(b_cpu)
+    err_e = close(energy.cpu(), e_cpu, 1e-4, "nequip molecule energy")
+    err_f = close(forces.cpu(), f_cpu, 1e-4, "nequip molecule forces")
+    q, r = np.linalg.qr(np.random.default_rng(3).normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    rot = torch.from_numpy(q).to(device, torch.float32)
+    b_rot = dataclasses.replace(batch, positions=batch.positions @ rot.T)
+    # full depth: the reference's 2x2->2 path leaks a trace into the l=2
+    # channel, so from 3 layers the energy is not invariant; the card
+    # must deviate as the CPU does
+    e_rot, f_rot = model.energy_forces(b_rot)
+    e_rot_cpu, f_rot_cpu = on_cpu(model).energy_forces(b_rot.to("cpu"))
+    close(e_rot.cpu(), e_rot_cpu, 1e-4, "nequip molecule rotated energy")
+    close(f_rot.cpu(), f_rot_cpu, 1e-4, "nequip molecule rotated forces")
+    dev_full = float((e_rot - energy).abs().max())
+    # the reference's own rotation test's depth (tests/test_models.py:96)
+    # at full() width: invariant and equivariant
+    two = G.nequip_init(dataclasses.replace(nequip_cfg.full(), n_layers=2),
+                        weights(), device=device)
+    e2, f2 = two.energy_forces(batch)
+    e2_rot, f2_rot = two.energy_forces(b_rot)
+    check(torch.allclose(e2_rot, e2, rtol=1e-4, atol=1e-4),
+          "phase 9 nequip (2 layers): energy not invariant under a rotation")
+    check(torch.allclose(f2_rot, f2 @ rot.T, rtol=1e-3, atol=1e-4),
+          "phase 9 nequip (2 layers): forces not equivariant")
+    report("nequip", "molecule", ms, peak, n, e, 0,
+           f"energy_forces max_abs_err_vs_cpu={err_e} / {err_f}; rotated "
+           f"(5 layers) energy moves {dev_full} (the reference's trace "
+           f"leak, card == CPU); 2 layers: energy moves "
+           f"{float((e2_rot - e2).abs().max())}, forces "
+           f"{float((f2_rot - f2 @ rot.T).abs().max())}")
+    del two
+    del model, batch
+    torch.cuda.empty_cache()
+    log(f"phase 9: every GNN check passed in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_deepfm(device) -> list:
     """DeepFM ``full()`` serving on the card with ``use_pallas_fm=True``
     at the recsys serve and retrieval cells, ids made as the reference's
@@ -1803,6 +2124,7 @@ def main() -> int:
     phase_path_masks(device, snap, recorded, rows, ITERS)
     del snap, recorded
     phase_applications(m)
+    seeds = gnn_seeds(m, GNN_SEEDS)  # phase 9's GraphSAGE seeds
     for r in rows:
         r["launches"] = launches[r["name"]]
         # the unified engine fuses the mcd_hi_dout / hi_dout passes into
@@ -1811,6 +2133,9 @@ def main() -> int:
                        else "ported, off the main path")
     del m
     torch.cuda.empty_cache()
+
+    # ---- phase 9: the GNN stack on the card -------------------------------
+    phase_gnn(device, g, seeds)
 
     # ---- phase 4b: the same batches on engine="host" ---------------------
     phase_host(device, g, g.edge_array()[pick], stream, history)

@@ -1,8 +1,9 @@
 """Architecture registry: --arch <id> -> config module.
 
 The reference's registry, holding only the archs whose model the port
-has: ``deepfm`` and ``coremaint``. The LM and GNN configs import models
-that are not ported yet; asking for one raises the reference's
+has: the GNNs (``pna``, ``gin-tu``, ``dimenet``, ``nequip``), ``deepfm``
+and ``coremaint``, in the reference's order. The LM configs import a
+model that is not ported yet; asking for one raises the reference's
 ``KeyError`` with that note.
 """
 from __future__ import annotations
@@ -16,6 +17,10 @@ _REFERENCE_ARCHS = (
     "qwen2-7b", "pna", "gin-tu", "dimenet", "nequip", "deepfm", "coremaint",
 )
 _ARCHS: Dict[str, str] = {
+    "pna": "pna",
+    "gin-tu": "gin_tu",
+    "dimenet": "dimenet",
+    "nequip": "nequip",
     "deepfm": "deepfm",
     "coremaint": "coremaint",
 }

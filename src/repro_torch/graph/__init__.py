@@ -1,3 +1,4 @@
+"""Graph containers, generators, edit streams and the fanout sampler."""
 from .csr import (  # noqa: F401
     COOEdges,
     CSRGraph,
@@ -8,3 +9,4 @@ from .csr import (  # noqa: F401
     ell_from_csr,
     remove_edges_csr,
 )
+from .sampler import NeighborSampler, SampledBlock  # noqa: F401

@@ -1,2 +1,3 @@
-"""The ported model stacks (so far DeepFM, ``models/recsys.py``)."""
-from . import recsys  # noqa: F401
+"""The ported model stacks: DeepFM (``models/recsys.py``) and the GNNs
+PNA, GIN, DimeNet and NequIP (``models/gnn.py``)."""
+from . import gnn, recsys  # noqa: F401

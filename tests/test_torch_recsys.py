@@ -66,14 +66,19 @@ def test_synthetic_ctr_batches_equal_reference(n_fields, rows, batch, seed):
 # -- configs ------------------------------------------------------------------
 
 def test_registry_holds_the_ported_archs():
-    assert configs.arch_names() == ["deepfm"]
-    assert configs.arch_names(include_coremaint=True) == ["deepfm",
-                                                          "coremaint"]
+    gnn = ["pna", "gin-tu", "dimenet", "nequip"]
+    assert configs.arch_names() == gnn + ["deepfm"]
+    assert configs.arch_names(include_coremaint=True) == gnn + [
+        "deepfm", "coremaint"]
+    # the reference's order
+    ref = ref_configs.arch_names(include_coremaint=True)
+    assert [n for n in ref if n in configs.arch_names(True)] == \
+        configs.arch_names(True)
     for name in configs.arch_names(include_coremaint=True):
         assert name in ref_configs.arch_names(include_coremaint=True)
 
 
-@pytest.mark.parametrize("name", ["qwen2-7b", "pna", "deepseek-v2-236b"])
+@pytest.mark.parametrize("name", ["qwen2-7b", "yi-34b", "deepseek-v2-236b"])
 def test_unported_archs_raise_key_error(name):
     ref_configs.get_arch(name)  # the reference has it
     with pytest.raises(KeyError, match="not ported yet"):
