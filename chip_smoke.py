@@ -5,8 +5,10 @@ its plain PyTorch version, and drives the main paths — one mixed batch
 at a time through ``CoreMaintainer.apply_batch`` on the unified engine,
 unweighted and weighted, on the host engine, and on the sharded engine
 (replicated and range-sharded vertex state) over a world of one NCCL
-rank — at full width, and serves the GNN stack (PNA, GIN, DimeNet,
-NequIP) at ``full()`` width on the GNN cells.
+rank — at full width, serves the GNN stack (PNA, GIN, DimeNet,
+NequIP) at ``full()`` width on the GNN cells, and serves the LM stack
+(qwen2-7b with every prefill attention on the attention kernel, and
+deepseek-v2-lite-16b) at ``full()`` width and depth.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -150,6 +152,22 @@ Phases:
      (``ogb_products``: two card forwards); NequIP under a seeded
      rotation (``phase_gnn``'s docstring). One line a model and cell:
      wall, peak memory, nodes, edges, triplets.
+ 10. (run after phase 9, before 4b) the LM stack at ``full()`` width and
+     depth, TF32 off, random weights drawn on the card from seeded
+     generators, walls as CUDA events (the median of 5 after a warm-up,
+     ``max_memory_allocated`` reset first), each model freed before the
+     next (``phase_lm``'s docstring): qwen2-7b in bfloat16 on the
+     kernel path (``kernel_backend="cuda"``: ``flash_attention`` once a
+     layer a prefill) against the plain path and a float32 copy at
+     1 x 4,096, with a teacher-forced decode; ``prefill_32k`` cut to
+     batch 1 (against the reference's streaming path on 4 layers);
+     ``decode_32k`` cut to batch 16 and ``long_500k`` at batch 1, 64
+     greedy steps each; a 2-layer cut against the CPU; then
+     deepseek-v2-lite-16b (MLA + MoE, the plain path) at 1 x 4,096 with
+     16 decode steps, and its 2-layer cut against the CPU in float32.
+     One line a part: wall, peak memory, tokens, launches. The
+     ``flash_attention`` rows gain ``lm_launches`` (phase 10's), and a
+     row times the kernel at 1 x 32,768 on layer 0's q, k, v.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
@@ -219,6 +237,18 @@ NO_LIBRARY = {
     "fm_interaction": "no single PyTorch call computes the FM "
                       "second-order term",
 }
+# phase 10: qwen2-7b's prefill_32k cut to 1 x 4,096 (then teacher-forced
+# decode steps), the reference's streaming chunk for the full cells
+# (launch/steps.py) on the first layers, decode_32k's 128 rows cut to 16
+LM_PREFILL = 4096
+LM_TF_STEPS = 8
+LM_CHUNK = 2048
+LM_CHUNK_LAYERS = 4
+LM_DECODE_BATCH = 16
+LM_DECODE_STEPS = 64
+LM_CPU_LAYERS = 2         # the card-vs-CPU cut
+LM_CPU_PROMPT = 256
+LM_MOE_STEPS = 16
 # phase 6's ell_stat rows: (op, values), values from stat_values
 STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
              ("max", "i32"), ("sum", "f32"), ("max", "f32"),
@@ -1919,6 +1949,486 @@ def phase_gnn(device, g, seeds) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM stack at full() width on LM_SHAPES's cells
+# ---------------------------------------------------------------------------
+def lm_rel(got, want) -> float:
+    """Relative L2 error of ``got`` against ``want`` (moved to ``got``'s
+    device), in float64."""
+    g, w = got.double(), want.to(got.device).double()
+    return float((g - w).norm() / w.norm())
+
+
+def lm_errors(last, cache, last_w, cache_w) -> list:
+    """``lm_rel`` of the last logits, then of each layer's cache entries
+    (K and V, or the latent and its rope key) taken together."""
+    import torch
+
+    names = [k for k in cache_w if k != "length"]
+    out = [lm_rel(last, last_w)]
+    for i in range(cache_w[names[0]].shape[0]):
+        out.append(lm_rel(
+            torch.cat([cache[k][i].reshape(-1) for k in names]),
+            torch.cat([cache_w[k][i].reshape(-1).to(cache[k].device)
+                       for k in names])))
+    return out
+
+
+def lm_within(tag, errs, yard, factor) -> None:
+    """Each error of ``errs`` at most ``factor`` x the same entry of
+    ``yard`` (index 0 the last logits, then layer by layer)."""
+    worst = max(e / y for e, y in zip(errs, yard))
+    log(f"phase 10 {tag}: relative L2 errors (logits, then layers) "
+        f"{[round(e, 6) for e in errs]} against {[round(y, 6) for y in yard]}"
+        f"; worst ratio {worst:.4f} (limit {factor})")
+    check(all(e <= factor * y for e, y in zip(errs, yard)),
+          f"phase 10 {tag}: an error over {factor}x its yardstick "
+          f"(worst ratio {worst})")
+
+
+def lm_decode(cfg, model, cache, tok, steps: int) -> tuple:
+    """``steps`` greedy ``decode_step``s from ``tok``, each timed with
+    CUDA events: ``(median ms of the steps after the first, peak bytes,
+    last logits, generated tokens [B, steps], cache)``."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev, out = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = T.decode_step(cfg, model, cache, tok)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        end.record()
+        ev.append((start, end))
+        out.append(tok)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ev]
+    return (float(np.median(ms[1:])), torch.cuda.max_memory_allocated(),
+            logits, torch.stack(out, 1), cache)
+
+
+def decode_bytes(model, cache) -> tuple:
+    """Bytes a ``decode_step`` must move at the least (every weight but
+    the embedding table, and the cache up to its length, read once) and
+    those the plain path moves: the reference's arithmetic upcasts each
+    layer's whole cache and the unembedding to float32 (read in their
+    dtype, written and read again at 4 bytes an element)."""
+    length = int(cache["length"])
+    names = [k for k in cache if k != "length"]
+    size = {k: cache[k].element_size() for k in names}
+    slots = cache[names[0]].shape[2]
+    live = sum(cache[k].numel() // slots * length * size[k] for k in names)
+    whole = sum(cache[k].numel() for k in names)
+    weights = sum(p.numel() * p.element_size() for n, p in
+                  model.named_parameters() if n != "embed")
+    un = model.unembed.numel()
+    bound = weights + live
+    plain = weights + 8 * un + sum(cache[k].numel() * size[k]
+                                   for k in names) + 8 * whole
+    return bound, plain
+
+
+def phase_lm(device) -> tuple:
+    """Phase 10: the LM stack at ``full()`` width and depth on the card,
+    bfloat16 unless named, TF32 off, random weights drawn on the card
+    (seeded ``torch.Generator``s), tokens from ``default_rng(0)``.
+
+    (a) qwen2-7b (7,615,487,488 parameters, 15.23 GB):
+      * 1 x 4,096 prefill on the kernel path and on the plain path (the
+        reference's ``_attend``) from the same weights, and the plain
+        path on a float32 copy: the kernel path launches
+        ``flash_attention[causal,bf16,d128]`` exactly 28 times (once a
+        layer) and the plain path none; the kernel path's relative L2
+        error against float32 (last logits, and each layer's K and V
+        cache) at most 1.5x the plain bf16 path's;
+      * teacher-forced decode: the kernel prefill's cache widened by 8
+        slots, 8 ``decode_step``s on the next 8 tokens against
+        ``forward``'s logits (kernel path) at those positions: their
+        relative L2 difference at most 3x the bf16 forward's own error
+        against the float32 forward there (two bf16 computations of one
+        function, each off by about that much);
+      * ``prefill_32k`` cut to batch 1 (32 -> 1): 1 x 32,768 on the
+        kernel, timed; on the first 4 layers (a copy) the kernel path
+        against the reference's streaming path (``attn_chunk=2048``,
+        ``launch/steps.py``'s value for the full cells): the kernel's
+        error against the streaming path run in float32 at most 1.5x
+        the bf16 streaming path's; the kernel alone on layer 0's q, k,
+        v at this length against the reference's streaming
+        ``_attend_chunked`` and SDPA (a ``kernels`` row; each row-relative
+        error below 1e-2, as in phase 6);
+      * ``decode_32k`` cut to batch 16 (128 -> 16): a 1 x 32,256
+        prefill, the cache widened to 32,768 and repeated over 16 rows,
+        64 greedy steps;
+      * ``long_500k`` at batch 1: a seeded random cache of 524,288
+        slots (30.06 GB) at length 524,224, 64 greedy steps;
+      * the first 2 layers (a copy) at full width on 1 x 256: the card
+        against the CPU's plain path, in float32 (the f32 kernel;
+        relative L2 at most 1e-4 on the logits and each layer's cache)
+        and in bfloat16 (the card's error against the CPU's float32 at
+        most 1.5x the CPU bf16 plain path's).
+    (b) deepseek-v2-lite-16b (16,210,311,168 parameters, 32.42 GB; MLA
+      + 64-expert MoE, the plain path, no kernel): 1 x 4,096 prefill
+      (expert capacity 481) and ``forward`` (finite, aux loss > 0), 16
+      greedy decode steps; its first 2 layers in float32 against the
+      CPU at 1e-4 (float32: a bf16 rounding can flip a token's experts).
+
+    Returns phase 10's launches by ``flash_attention`` counter (its
+    counted path) and the ``kernels`` row of the kernel at 1 x 32,768."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import deepseek_v2_lite_16b, qwen2_7b
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    t10 = time.perf_counter()
+    cells = {c.name: c.params for c in LM_SHAPES}
+    key = FA.launch_key(True, torch.bfloat16, 128)
+    key32 = FA.launch_key(True, torch.float32, 128)
+    rng = np.random.default_rng(0)
+
+    def tokens(n, vocab):
+        return torch.from_numpy(rng.integers(0, vocab, (1, n)).astype(
+            np.int32)).to(device)
+
+    def part(name, ms, peak, n_tok, launches, extra=""):
+        log(f"phase 10 {name}: wall_ms={ms:.4f} peak_bytes={peak} "
+            f"tokens={n_tok} launches={launches}{extra}")
+
+    def launched():
+        return FA.LAUNCHES[key] + FA.LAUNCHES[key32]
+
+    FA.reset_launches()
+    cfg = qwen2_7b.full()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                          device=device)
+    sync(device)
+    log(f"phase 10 qwen2-7b full(): n_params={cfg.n_params} "
+        f"bytes={sum(p.numel() * p.element_size() for p in model.parameters())}"
+        f" kernel_backend={model.kernel_backend} "
+        f"init {time.perf_counter() - t0:.1f} s")
+    check(model.kernel_backend == "cuda", "phase 10: qwen2-7b does not "
+          "resolve to the kernel path on the card")
+    toks = tokens(LM_PREFILL + LM_TF_STEPS, cfg.vocab)
+    prompt = toks[:, :LM_PREFILL]
+    with torch.no_grad():
+        # ---- (a) 1 x 4,096: kernel, plain, float32 ----------------------
+        n0 = FA.LAUNCHES[key]
+        last_k, cache_k = T.prefill(cfg, model, prompt, "cuda")
+        sync(device)
+        check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+              f"phase 10 prefill 4k: {FA.LAUNCHES[key] - n0} kernel "
+              f"launches, not one a layer ({cfg.n_layers})")
+        n0 = launched()
+        last_p, cache_p = T.prefill(cfg, model, prompt, "torch")
+        sync(device)
+        check(launched() == n0, "phase 10: the plain path launched a kernel")
+        ms_k, peak_k, _, _ = gnn_time(
+            lambda: T.prefill(cfg, model, prompt, "cuda"))
+        part(f"prefill 1x{LM_PREFILL} kernel", ms_k, peak_k, LM_PREFILL,
+             cfg.n_layers, f" tokens_per_s={LM_PREFILL / ms_k * 1e3:.1f}")
+        ms_p, peak_p, _, _ = gnn_time(
+            lambda: T.prefill(cfg, model, prompt, "torch"))
+        part(f"prefill 1x{LM_PREFILL} plain", ms_p, peak_p, LM_PREFILL, 0,
+             f" tokens_per_s={LM_PREFILL / ms_p * 1e3:.1f}")
+        t0 = time.perf_counter()
+        m32 = model.converted(torch.float32)
+        last_f, cache_f = T.prefill(m32.cfg, m32, prompt, "torch")
+        logits_f, _ = T.forward(m32.cfg, m32, toks, "torch")
+        want_f = logits_f[0, LM_PREFILL:].clone()
+        del m32, logits_f
+        sync(device)
+        log(f"phase 10 float32 copy: prefill and forward of "
+            f"{LM_PREFILL + LM_TF_STEPS} tokens in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lm_within("prefill 4k kernel vs float32",
+                  lm_errors(last_k, cache_k, last_f, cache_f),
+                  lm_errors(last_p, cache_p, last_f, cache_f), 1.5)
+        del cache_p, cache_f, last_p, last_f
+        n0 = FA.LAUNCHES[key]
+        logits_b, _ = T.forward(cfg, model, toks, "cuda")
+        check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+              "phase 10 forward: not one kernel launch a layer")
+        fwd_b = logits_b[0, LM_PREFILL:].clone()
+        check(lm_rel(last_k, logits_b[0, LM_PREFILL - 1:LM_PREFILL]) < 1e-2,
+              "phase 10: prefill's last logits != forward's")
+        del logits_b
+        cache = T.widen_cache(cache_k, LM_PREFILL + LM_TF_STEPS)
+        del cache_k
+        dec = []
+        for i in range(LM_TF_STEPS):
+            lg, cache = T.decode_step(cfg, model, cache,
+                                      toks[:, LM_PREFILL + i])
+            dec.append(lg[0])
+        dec = torch.stack(dec)
+        check(int(cache["length"]) == LM_PREFILL + LM_TF_STEPS,
+              "phase 10: cache length after the teacher-forced decode")
+        err_fwd, err_dec = lm_rel(fwd_b, want_f), lm_rel(dec, fwd_b)
+        log(f"phase 10 teacher-forced decode: {LM_TF_STEPS} steps after "
+            f"the kernel prefill, relative L2 to forward's logits {err_dec} "
+            f"(limit 3x {err_fwd}, the bf16 forward's error against "
+            f"float32; the decode's own {lm_rel(dec, want_f)}); argmax "
+            f"agrees at {int((dec.argmax(-1) == fwd_b.argmax(-1)).sum())}"
+            f"/{LM_TF_STEPS}")
+        check(err_dec <= 3 * err_fwd, f"phase 10 teacher-forced decode: "
+              f"{err_dec} over 3x {err_fwd}")
+        del cache, dec, fwd_b, want_f, last_k
+        torch.cuda.empty_cache()
+
+        # ---- (a) prefill_32k cut to batch 1 ------------------------------
+        s32 = cells["prefill_32k"]["seq"]
+        toks32 = tokens(s32, cfg.vocab)
+        n0 = FA.LAUNCHES[key]
+        ms32, peak32, (last32, _), _ = gnn_time(
+            lambda: T.prefill(cfg, model, toks32, "cuda"))
+        check(FA.LAUNCHES[key] - n0 == (SERVE_CALLS + 1) * cfg.n_layers,
+              "phase 10 prefill 32k: not one kernel launch a layer")
+        check(bool(torch.isfinite(last32).all()),
+              "phase 10 prefill 32k: logits not finite")
+        # every matmul weight on every token, but the unembedding on the
+        # last token only (prefill's logits); the embedding is a gather
+        lin = 2 * (cfg.n_params - 2 * cfg.vocab * cfg.d_model) * s32 \
+            + 2 * cfg.vocab * cfg.d_model
+        att = 4 * cfg.n_heads * cfg.d_head * s32 * (s32 + 1) // 2 \
+            * cfg.n_layers
+        part(f"prefill_32k 1x{s32} kernel (batch 32 -> 1)", ms32, peak32,
+             s32, cfg.n_layers, f" tokens_per_s={s32 / ms32 * 1e3:.1f} "
+             f"flops={lin + att} bound_ms={(lin + att) / BF16_PEAK * 1e3:.4f}")
+        del last32
+        # the first layers against the reference's streaming path
+        t0 = time.perf_counter()
+        cut = model.converted(n_layers=LM_CHUNK_LAYERS)
+        chunked = dataclasses.replace(cut.cfg, attn_chunk=LM_CHUNK)
+        l_k, c_k = T.prefill(cut.cfg, cut, toks32, "cuda")
+        n0 = launched()
+        l_c, c_c = T.prefill(chunked, cut, toks32, "torch")
+        cut32 = cut.converted(torch.float32)
+        del cut
+        l_f, c_f = T.prefill(dataclasses.replace(cut32.cfg,
+                                                 attn_chunk=LM_CHUNK),
+                             cut32, toks32, "torch")
+        check(launched() == n0, "phase 10: the streaming path launched a "
+              "kernel")
+        del cut32
+        sync(device)
+        log(f"phase 10 prefill_32k first {LM_CHUNK_LAYERS} layers: kernel, "
+            f"streaming bf16 and float32 (attn_chunk={LM_CHUNK}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lm_within(f"prefill_32k {LM_CHUNK_LAYERS} layers kernel vs "
+                  "streaming float32", lm_errors(l_k, c_k, l_f, c_f),
+                  lm_errors(l_c, c_c, l_f, c_f), 1.5)
+        del l_k, c_k, l_c, c_c, l_f, c_f
+        torch.cuda.empty_cache()
+        # the kernel alone on layer 0's q, k, v at 32k
+        lp0 = T._layer(model, 0)
+        h = T.rms_norm(model.embed[toks32.long()], lp0["ln_attn"],
+                       cfg.norm_eps)
+        q, k, v = T._gqa_qkv(cfg, lp0, h, torch.arange(
+            s32, device=device)[None])
+        del h
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        path = dict(FA.LAUNCHES)
+
+        def run():
+            return FA.flash_attention(qh, kh, vh, causal=True, block_q=s32,
+                                      block_k=s32)
+
+        def plain():
+            return T._attend_chunked(q, k, v, True, LM_CHUNK).transpose(1, 2)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+        ops = 4 * cfg.n_heads * cfg.d_head * s32 * (s32 + 1) // 2
+        got, want = run(), plain()
+        row = float_row(
+            f"{key} prefill_32k", "flash_attention", got, want,
+            (3e-2, 3e-2), run, plain,
+            qh.element_size() * (2 * qh.numel() + kh.numel() + vh.numel()),
+            ops, BF16_PEAK, SERVE_CALLS, device,
+            f"q={list(qh.shape)} kv={list(kh.shape)} causal=True "
+            f"torch.bfloat16 (qwen2-7b layer 0)", library=library,
+            library_call="scaled_dot_product_attention", phase="phase 10")
+        rel, lib_rel = row_rel_err(got, want), row_rel_err(library(), want)
+        log(f"phase 10 {row['name']}: max row-relative error to the plain "
+            f"version {rel} (kernel), {lib_rel} "
+            "(scaled_dot_product_attention), limit 1e-2")
+        check(rel < 1e-2 and lib_rel < 1e-2,
+              f"phase 10 {row['name']}: row-relative error {rel} / "
+              f"{lib_rel} over 1e-2")
+        row["row_rel_err"] = rel
+        row["tflops"] = ops / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["reduced"] = "prefill_32k's 32 x 32,768 cut to 1 x 32,768"
+        log(f"phase 10 {row['name']}: {row['tflops']:.1f} TFLOP/s, "
+            f"{row['share_of_bound']:.3f} of the bound")
+        FA.LAUNCHES.update(path)  # the timed launches are not the path's
+        del q, k, v, qh, kh, vh, got, want
+        torch.cuda.empty_cache()
+
+        # ---- (a) decode_32k cut to batch 16 -------------------------------
+        t_cache = cells["decode_32k"]["cache"]
+        s_pre = t_cache - 512
+        n0 = FA.LAUNCHES[key]
+        last_d, cache_d = T.prefill(cfg, model, tokens(s_pre, cfg.vocab),
+                                    "cuda")
+        check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+              "phase 10 decode_32k prefill: not one launch a layer")
+        cache_d = T.widen_cache(cache_d, t_cache)
+        for name in ("k", "v"):
+            cache_d[name] = cache_d[name].expand(
+                -1, LM_DECODE_BATCH, -1, -1, -1).contiguous()
+        torch.cuda.empty_cache()
+        tok = torch.argmax(last_d, dim=-1).to(torch.int32).expand(
+            LM_DECODE_BATCH).contiguous()
+        n0 = launched()
+        ms_d, peak_d, lg, gen, cache_d = lm_decode(cfg, model, cache_d, tok,
+                                                   LM_DECODE_STEPS)
+        check(launched() == n0, "phase 10: a decode step launched a kernel")
+        check(int(cache_d["length"]) == s_pre + LM_DECODE_STEPS
+              and bool(torch.isfinite(lg).all())
+              and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+              "phase 10 decode_32k: length, logits or tokens")
+        bound, plain_b = decode_bytes(model, cache_d)
+        part(f"decode_32k batch {LM_DECODE_BATCH} (128 -> "
+             f"{LM_DECODE_BATCH}), cache {t_cache}, {LM_DECODE_STEPS} steps "
+             "(ms a step)", ms_d, peak_d, LM_DECODE_BATCH * LM_DECODE_STEPS,
+             0, f" tokens_per_s={LM_DECODE_BATCH / ms_d * 1e3:.1f} "
+             f"bound_bytes={bound} bound_ms={bound / HBM_BYTES_PER_S * 1e3:.4f}"
+             f" plain_bytes={plain_b} "
+             f"plain_bytes_ms={plain_b / HBM_BYTES_PER_S * 1e3:.4f}")
+        del cache_d, last_d, lg
+        torch.cuda.empty_cache()
+
+        # ---- (a) long_500k at batch 1 -------------------------------------
+        t_long = cells["long_500k"]["cache"]
+        cache_l = T.init_cache(cfg, cells["long_500k"]["batch"], t_long,
+                               device)
+        gen_c = torch.Generator(device=device).manual_seed(2)
+        for name in ("k", "v"):
+            for i in range(cfg.n_layers):
+                cache_l[name][i].normal_(generator=gen_c)
+        cache_l["length"].fill_(t_long - LM_DECODE_STEPS)
+        n0 = launched()
+        ms_l, peak_l, lg, gen, cache_l = lm_decode(
+            cfg, model, cache_l, tokens(1, cfg.vocab)[0], LM_DECODE_STEPS)
+        check(launched() == n0, "phase 10: a decode step launched a kernel")
+        check(int(cache_l["length"]) == t_long
+              and bool(torch.isfinite(lg).all()),
+              "phase 10 long_500k: length or logits")
+        bound, plain_b = decode_bytes(model, cache_l)
+        part(f"long_500k batch 1, cache {t_long} "
+             f"({sum(cache_l[k].numel() * 2 for k in ('k', 'v'))} B) from "
+             f"length {t_long - LM_DECODE_STEPS}, {LM_DECODE_STEPS} steps "
+             "(ms a step)", ms_l, peak_l, LM_DECODE_STEPS, 0,
+             f" tokens_per_s={1 / ms_l * 1e3:.1f} bound_bytes={bound} "
+             f"bound_ms={bound / HBM_BYTES_PER_S * 1e3:.4f} "
+             f"plain_bytes={plain_b} "
+             f"plain_bytes_ms={plain_b / HBM_BYTES_PER_S * 1e3:.4f}")
+        del cache_l, lg
+        torch.cuda.empty_cache()
+
+        # ---- (a) the first 2 layers, card against CPU ---------------------
+        t0 = time.perf_counter()
+        cut = model.converted(n_layers=LM_CPU_LAYERS)
+        del model
+        torch.cuda.empty_cache()
+        p = toks[:, :LM_CPU_PROMPT]
+        cpu32 = cut.converted(torch.float32, "cpu")
+        truth = T.prefill(cpu32.cfg, cpu32, p.cpu())
+        del cpu32
+        cpu16 = cut.converted(device="cpu")
+        plain16 = T.prefill(cpu16.cfg, cpu16, p.cpu())
+        del cpu16
+        n0 = launched()
+        card16 = T.prefill(cut.cfg, cut, p, "cuda")
+        card32_m = cut.converted(torch.float32)
+        card32 = T.prefill(card32_m.cfg, card32_m, p, "cuda")
+        check(FA.LAUNCHES[key32] > 0 and launched() - n0
+              == 2 * LM_CPU_LAYERS, "phase 10 card vs CPU: not one launch "
+              "a layer in each dtype")
+        del card32_m, cut
+        errs32 = lm_errors(*card32, *truth)
+        log(f"phase 10 {LM_CPU_LAYERS} layers 1x{LM_CPU_PROMPT} float32 card "
+            f"(kernel) vs CPU (plain): relative L2 {errs32} (limit 1e-4)")
+        check(max(errs32) <= 1e-4, "phase 10 card vs CPU float32")
+        lm_within(f"{LM_CPU_LAYERS} layers 1x{LM_CPU_PROMPT} bf16 card "
+                  "(kernel) vs CPU float32", lm_errors(*card16, *truth),
+                  lm_errors(*plain16, *truth), 1.5)
+        log(f"phase 10 card vs CPU: {time.perf_counter() - t0:.1f} s")
+        del truth, plain16, card16, card32
+        torch.cuda.empty_cache()
+
+        # ---- (b) deepseek-v2-lite-16b ------------------------------------
+        cfg_d = deepseek_v2_lite_16b.full()
+        t0 = time.perf_counter()
+        md = T.init_params(cfg_d, torch.Generator(device=device).manual_seed(
+            0), device=device)
+        sync(device)
+        log(f"phase 10 deepseek-v2-lite-16b full(): n_params="
+            f"{cfg_d.n_params} bytes="
+            f"{sum(x.numel() * x.element_size() for x in md.parameters())} "
+            f"kernel_backend={md.kernel_backend} "
+            f"init {time.perf_counter() - t0:.1f} s")
+        check(md.kernel_backend == "torch", "phase 10: MLA resolved to the "
+              "kernel path")
+        toks_d = tokens(LM_PREFILL, cfg_d.vocab)
+        n0 = launched()
+        ms_m, peak_m, (last_m, cache_m), _ = gnn_time(
+            lambda: T.prefill(cfg_d, md, toks_d))
+        logits_m, aux = T.forward(cfg_d, md, toks_d)
+        cap = int(cfg_d.moe.capacity_factor * cfg_d.moe.top_k * LM_PREFILL
+                  / cfg_d.moe.n_routed) + 1
+        check(bool(torch.isfinite(last_m).all())
+              and bool(torch.isfinite(logits_m).all()) and float(aux) > 0,
+              "phase 10 deepseek-v2-lite-16b: logits not finite or aux <= 0")
+        part(f"deepseek-v2-lite-16b prefill 1x{LM_PREFILL} (expert capacity "
+             f"{cap})", ms_m, peak_m, LM_PREFILL, 0,
+             f" tokens_per_s={LM_PREFILL / ms_m * 1e3:.1f} aux={float(aux)} "
+             f"last logits vs forward's {lm_rel(last_m, logits_m[:, -1])}")
+        del logits_m
+        cache_m = T.widen_cache(cache_m, LM_PREFILL + LM_MOE_STEPS)
+        tok = torch.argmax(last_m, dim=-1).to(torch.int32)
+        ms_md, peak_md, lg, gen, cache_m = lm_decode(cfg_d, md, cache_m, tok,
+                                                     LM_MOE_STEPS)
+        check(launched() == n0, "phase 10: deepseek launched the kernel")
+        check(int(cache_m["length"]) == LM_PREFILL + LM_MOE_STEPS
+              and bool(torch.isfinite(lg).all()),
+              "phase 10 deepseek decode: length or logits")
+        part(f"deepseek-v2-lite-16b decode batch 1, {LM_MOE_STEPS} steps "
+             "(ms a step)", ms_md, peak_md, LM_MOE_STEPS, 0,
+             f" tokens_per_s={1 / ms_md * 1e3:.1f}")
+        del cache_m, lg
+        cut = md.converted(torch.float32, n_layers=LM_CPU_LAYERS)
+        del md
+        torch.cuda.empty_cache()
+        p = toks_d[:, :LM_CPU_PROMPT]
+        card = T.prefill(cut.cfg, cut, p)
+        cpu = cut.converted(device="cpu")
+        want = T.prefill(cpu.cfg, cpu, p.cpu())
+        errs = lm_errors(*card, *want)
+        log(f"phase 10 deepseek-v2-lite-16b {LM_CPU_LAYERS} layers "
+            f"1x{LM_CPU_PROMPT} float32 card vs CPU: relative L2 {errs} "
+            "(limit 1e-4)")
+        check(max(errs) <= 1e-4, "phase 10 deepseek card vs CPU float32")
+        del cut, cpu, card, want
+        torch.cuda.empty_cache()
+
+    counts = {k: c for k, c in FA.LAUNCHES.items() if c}
+    row["launches"] = counts.get(key, 0)
+    row["lm_launches"] = row["launches"]
+    row["status"] = "on the LM path (phase 10)"
+    log(f"phase 10 launches={json.dumps(counts)}; every LM check passed "
+        f"in {time.perf_counter() - t10:.1f} s")
+    return counts, row
+
+
 def phase_deepfm(device) -> list:
     """DeepFM ``full()`` serving on the card with ``use_pallas_fm=True``
     at the recsys serve and retrieval cells, ids made as the reference's
@@ -2137,6 +2647,10 @@ def main() -> int:
     # ---- phase 9: the GNN stack on the card -------------------------------
     phase_gnn(device, g, seeds)
 
+    # ---- phase 10: the LM stack on the card -------------------------------
+    lm_counts, lm_row = phase_lm(device)
+    torch.cuda.empty_cache()
+
     # ---- phase 4b: the same batches on engine="host" ---------------------
     phase_host(device, g, g.edge_array()[pick], stream, history)
 
@@ -2230,7 +2744,9 @@ def main() -> int:
         check(r["launches"] > 0,
               f"phase 7: kernel {r['name']} was never launched")
         r["status"] = "on the slice's path (phase 7)"
-    rows += new_rows
+        if r["name"].startswith("flash_attention["):
+            r["lm_launches"] = lm_counts.get(r["name"], 0)
+    rows += new_rows + [lm_row]
 
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

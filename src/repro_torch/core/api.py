@@ -78,12 +78,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..device import resolve_device
+from ..device import resolve_backend, resolve_device
 from ..graph.csr import CSRGraph, build_csr
 from ..launch.mesh import make_edge_mesh, make_edge_vertex_mesh, table_group
 from .decomposition import peel_decomposition, rank_to_labels
 from .engine import BatchStats, apply_batch, apply_batch_weighted
-from .graph_ops import KERNEL_BACKENDS
 from .insert import InsertStats, insert_batch
 from .oracle import bz_core_decomposition
 from .order import needs_renumber, renumber
@@ -183,26 +182,6 @@ def _as_edge_array(edges) -> np.ndarray:
     if edges is None:
         return np.zeros((0, 2), dtype=np.int64)
     return np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-
-
-def resolve_backend(kernel_backend: Optional[str],
-                    dev: torch.device, engine: str = "unified") -> str:
-    """``None`` means ``"cuda"`` on a card and ``"torch"`` on the CPU or
-    under ``engine="host"``; ``"cuda"`` on a CPU device raises."""
-    if kernel_backend is None:
-        kernel_backend = ("cuda" if dev.type == "cuda" and engine != "host"
-                          else "torch")
-    if kernel_backend not in KERNEL_BACKENDS:
-        raise ValueError(
-            f"unknown kernel_backend {kernel_backend!r} "
-            f"(expected one of {KERNEL_BACKENDS})"
-        )
-    if kernel_backend == "cuda" and dev.type != "cuda":
-        raise ValueError(
-            "kernel_backend='cuda' needs a CUDA device (got "
-            f"{dev}); the CPU runs kernel_backend='torch'"
-        )
-    return kernel_backend
 
 
 def _check_config(engine: str, kernel_backend: Optional[str],
@@ -372,7 +351,7 @@ class CoreMaintainer:
                       self.frontier_cap)
         dev = self.src.device
         self.kernel_backend = resolve_backend(self.kernel_backend, dev,
-                                              self.engine)
+                                              self.engine != "host")
         if self.weighted:
             if self.w is None:
                 # unit weights: the weighted engine then computes exactly

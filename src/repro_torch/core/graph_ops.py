@@ -29,8 +29,6 @@ import torch
 from ..kernels import coremaint
 from .vertex_layout import ReplicatedVertices, VertexLayout, pmax
 
-KERNEL_BACKENDS = ("torch", "cuda")
-
 
 def completes_locally(layout: Optional[VertexLayout]) -> bool:
     """True when the layout's completion is the identity (one device):

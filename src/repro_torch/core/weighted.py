@@ -24,8 +24,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from .api import resolve_backend
+from ..device import resolve_backend, resolve_device
 from .graph_ops import _seg2
 from .remove import weighted_core_fixpoint_pass
 

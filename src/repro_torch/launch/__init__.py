@@ -1,2 +1,2 @@
 """Launch helpers of the port: the device meshes of the sharded engine
-(``mesh``)."""
+(``mesh``) and the LM serving launcher (``serve``)."""

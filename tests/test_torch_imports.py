@@ -33,7 +33,7 @@ def test_import_every_module_without_jax_or_repro():
                      if k == "jax" or k.startswith(("jax.", "jaxlib"))
                      or k == "repro" or k.startswith("repro."))
         assert not bad, bad
-        assert len(names) >= 43, names
+        assert len(names) >= 51, names
         print("ok", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,7 +62,8 @@ def _imports(path: Path):
                                       "time_attention.py",
                                       "time_coremaint.py",
                                       "time_gnn.py",
-                                      "time_kernel_api.py")],
+                                      "time_kernel_api.py",
+                                      "time_lm.py")],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_or_repro_import_in_source(path):

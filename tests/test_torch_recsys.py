@@ -66,23 +66,25 @@ def test_synthetic_ctr_batches_equal_reference(n_fields, rows, batch, seed):
 # -- configs ------------------------------------------------------------------
 
 def test_registry_holds_the_ported_archs():
+    lm = ["deepseek-v2-236b", "deepseek-v2-lite-16b", "yi-34b", "qwen3-8b",
+          "qwen2-7b"]
     gnn = ["pna", "gin-tu", "dimenet", "nequip"]
-    assert configs.arch_names() == gnn + ["deepfm"]
-    assert configs.arch_names(include_coremaint=True) == gnn + [
+    assert configs.arch_names() == lm + gnn + ["deepfm"]
+    assert configs.arch_names(include_coremaint=True) == lm + gnn + [
         "deepfm", "coremaint"]
-    # the reference's order
-    ref = ref_configs.arch_names(include_coremaint=True)
-    assert [n for n in ref if n in configs.arch_names(True)] == \
-        configs.arch_names(True)
-    for name in configs.arch_names(include_coremaint=True):
-        assert name in ref_configs.arch_names(include_coremaint=True)
+    # the reference's registry, in its order
+    assert configs.arch_names(include_coremaint=True) == \
+        ref_configs.arch_names(include_coremaint=True)
 
 
 @pytest.mark.parametrize("name", ["qwen2-7b", "yi-34b", "deepseek-v2-236b"])
 def test_unported_archs_raise_key_error(name):
-    ref_configs.get_arch(name)  # the reference has it
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch(name)
+    """No arch of the reference is left unported: the LM archs, the last
+    the registry refused, now resolve to the port's config modules."""
+    ref = ref_configs.get_arch(name)
+    mod = configs.get_arch(name)
+    assert mod.__name__.startswith("repro_torch.configs.")
+    assert mod.FAMILY == ref.FAMILY == "lm"
 
 
 def test_unknown_arch_raises_the_reference_key_error():
