@@ -6,9 +6,12 @@ at a time through ``CoreMaintainer.apply_batch`` on the unified engine,
 unweighted and weighted, on the host engine, and on the sharded engine
 (replicated and range-sharded vertex state) over a world of one NCCL
 rank — at full width, serves the GNN stack (PNA, GIN, DimeNet,
-NequIP) at ``full()`` width on the GNN cells, and serves the LM stack
+NequIP) at ``full()`` width on the GNN cells, serves the LM stack
 (qwen2-7b with every prefill attention on the attention kernel, and
-deepseek-v2-lite-16b) at ``full()`` width and depth.
+deepseek-v2-lite-16b) at ``full()`` width and depth, and trains on the
+card (qwen2-7b at full width, the dynamic-graph GNN trainer whose
+maintainer launches the core-maintenance kernels between steps, and
+``launch/steps.py``'s train cells).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -169,6 +172,38 @@ Phases:
      ``flash_attention`` rows gain ``lm_launches`` (phase 10's), and a
      row times the kernel at 1 x 32,768 on layer 0's q, k, v.
 
+ 11. (run after phase 10, before 4b) training on the card, TF32 off
+     (``phase_train``): (a) qwen2-7b at ``full()`` width cut to 4 of 28
+     layers (2,022,229,504 parameters; 28 would hold ~91 GB of weights,
+     gradients and moments), bfloat16, ``run_training`` for 5 steps of
+     ``synthetic_lm_batches`` at 2 x 4,096 with ``micro_batches=2``:
+     each step's wall (CUDA events) and tokens/s, loss, grad norm and
+     lr, ``max_memory_allocated``; every metric finite, the grad norm
+     above 0, every parameter tensor moved but the norm scales (at 1.0
+     a bf16 ulp swallows their update: no master copy, as in the
+     reference), ``flash_attention``'s launches unchanged (training
+     runs the plain attention); (c) that state saved once and restored
+     once into fresh tensors, timed, bit for bit; at ``smoke()`` width
+     under ``torch.use_deterministic_algorithms`` (a child process) a
+     run interrupted by a SIGTERM it sends itself inside the loop and
+     resumed from its checkpoint equals an uninterrupted run bit for
+     bit; ``python -m repro_torch.launch.train --smoke --steps 20
+     --ckpt-dir DIR`` twice, the second resuming; (b) one training step
+     at full width, 1 layer, float32, on the card and on the CPU from
+     the same weights (``phase_train_cpu``'s tolerances); (d)
+     ``examples/train_gnn_torch.py``'s trainer at n = 100,000, m = 4n,
+     60 bursts of 1,000 edges: the coremaint launch counts from 0
+     before it and read after it (a, b and c each launched), the final
+     cores against a fresh peel and the certificate, the loss improved;
+     (e) ``build_cell`` train cells at ``full()``, one step each (DeepFM
+     ``train_batch``, PNA ``full_graph_sm``, GIN ``minibatch_lg``,
+     DimeNet and NequIP ``molecule``, PNA ``ogb_products`` cut to 1/8 of
+     its nodes and edges) with wall, peak memory and finiteness, and
+     the coremaint ``remove_100k`` / ``insert_100k`` cells (n =
+     4,847,571, 140,000,256 slots) with the cores after the step equal
+     to a fresh peel. The rows of kernels a, b and c in the kernels line
+     gain ``train_launches`` (phase 11d's).
+
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
 
@@ -249,6 +284,19 @@ LM_DECODE_STEPS = 64
 LM_CPU_LAYERS = 2         # the card-vs-CPU cut
 LM_CPU_PROMPT = 256
 LM_MOE_STEPS = 16
+# phase 11: qwen2-7b full() width cut to 4 layers for training (PERF.md
+# §4: ~24 GB of bf16 weights and gradients and float32 moments), the
+# card-vs-CPU step at 1 layer, the dynamic-graph GNN trainer's scale,
+# the train cells at full(), PNA ogb_products cut to 1/8 for training
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MB = 2, 4096, 5, 2
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
+GNN_TRAIN = dict(n=100_000, steps=60, burst=1000)
+TRAIN_CELLS = (("deepfm", "train_batch"), ("pna", "full_graph_sm"),
+               ("gin-tu", "minibatch_lg"), ("dimenet", "molecule"),
+               ("nequip", "molecule"))
+OGB_TRAIN_CUT = 8
+BF16_STILL = ("final_norm", "layers.ln_attn", "layers.ln_ffn")
 # phase 6's ell_stat rows: (op, values), values from stat_values
 STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
              ("max", "i32"), ("sum", "f32"), ("max", "f32"),
@@ -2429,6 +2477,518 @@ def phase_lm(device) -> tuple:
     return counts, row
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training on the card
+# ---------------------------------------------------------------------------
+_RESUME_CHILD = r'''
+import os, signal, sys, time
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.configs import qwen2_7b
+from repro_torch.data.lm import synthetic_lm_batches
+from repro_torch.models import transformer as T
+from repro_torch.optim.params import named
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.loop import TrainConfig, run_training
+
+d, STEPS, KILL = sys.argv[1], 12, 5
+cfg = qwen2_7b.smoke()  # bfloat16: the checkpoints hold bf16 leaves
+
+
+def batches():
+    for t, y in synthetic_lm_batches(cfg.vocab, 4, 64, seed=0):
+        yield torch.from_numpy(t).cuda(), torch.from_numpy(y).cuda()
+
+
+def fresh():
+    return T.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+
+
+def lf(p, t, y):
+    return T.loss_fn(cfg, p, t, y, kernel_backend="torch")
+
+
+def tc(ckdir=None):
+    return TrainConfig(lr=1e-3, warmup=2, total_steps=STEPS,
+                       micro_batches=2, ckpt_dir=ckdir, ckpt_every=1000)
+
+
+full, rep_full = run_training(fresh(), lf, batches(), tc())
+
+
+def kill(step, _m):
+    if step == KILL:  # inside the guard's window: run_training's loop
+        os.kill(os.getpid(), signal.SIGTERM)
+        time.sleep(0.05)
+
+
+seen = []
+signal.signal(signal.SIGTERM, lambda *a: seen.append(a[0]))
+_, rep1 = run_training(fresh(), lf, batches(), tc(d), on_step=kill)
+assert rep1["final_step"] == KILL and not seen, (rep1["final_step"], seen)
+assert ckpt.latest_step(d) == KILL, ckpt.latest_step(d)
+stream = batches()
+for _ in range(KILL + 1):
+    next(stream)
+res, rep2 = run_training(fresh(), lf, stream, tc(d))
+assert len(rep2["history"]) == STEPS - KILL - 1 and not seen
+n = 0
+for k, t in named(full).items():
+    assert torch.equal(t, named(res)[k]), k
+    n += 1
+for name in ("m", "v"):
+    for k, t in rep_full["opt_state"][name].items():
+        assert torch.equal(t, rep2["opt_state"][name][k]), (name, k)
+        n += 1
+assert int(rep2["opt_state"]["count"]) == STEPS
+assert rep2["history"] == rep_full["history"][KILL + 1:]
+print(f"resume: SIGTERM at step {KILL} of {STEPS}, checkpoint of step "
+      f"{KILL} restored, {n} tensors and the losses of steps "
+      f"{KILL + 1}-{STEPS - 1} equal the uninterrupted run bit for bit")
+'''
+
+
+def _named_equal(a, b) -> int:
+    """Check two ``(module, opt_state)`` pairs equal bit for bit; return
+    the tensors compared."""
+    import torch
+    from repro_torch.optim.params import named
+
+    n = 0
+    for k, t in named(a[0]).items():
+        check(t.dtype == named(b[0])[k].dtype and
+              torch.equal(t, named(b[0])[k]), f"phase 11c: {k} differs")
+        n += 1
+    for name in ("m", "v"):
+        for k, t in a[1][name].items():
+            check(torch.equal(t, b[1][name][k]), f"phase 11c: {name} {k}")
+            n += 1
+    check(int(a[1]["count"]) == int(b[1]["count"]), "phase 11c: count")
+    return n + 1
+
+
+def phase_train_lm(device, smi: str) -> tuple:
+    """Phase 11a: qwen2-7b at ``full()`` width cut to ``TRAIN_LAYERS``
+    layers, bfloat16, ``run_training`` for ``TRAIN_STEPS`` steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.data.lm import synthetic_lm_batches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.params import named
+    from repro_torch.train.loop import TrainConfig, run_training
+
+    cfg = dataclasses.replace(qwen2_7b.full(), n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, torch.Generator(device).manual_seed(0),
+                          device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    data = synthetic_lm_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [tuple(torch.from_numpy(x).to(device) for x in next(data))
+               for _ in range(TRAIN_STEPS)]
+    before = {k: p.detach().reshape(-1)[:4096].clone()
+              for k, p in named(model).items()}
+    sync(device)
+    log(f"phase 11a qwen2-7b full() width, {TRAIN_LAYERS} of 28 layers, "
+        f"bf16: {n_params} parameters; {TRAIN_STEPS} batches of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, micro_batches={TRAIN_MB} "
+        f"({time.perf_counter() - t0:.1f} s set-up)")
+
+    h_before = dict(FA.LAUNCHES)
+    ends = []
+
+    def on_step(step, _m):  # metrics were read: the step is done
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+
+    def lf(p, tokens, targets):
+        return T.loss_fn(cfg, p, tokens, targets, kernel_backend="torch")
+
+    tc = TrainConfig(lr=3e-4, warmup=1, total_steps=TRAIN_STEPS,
+                     micro_batches=TRAIN_MB)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    model, report = run_training(model, lf, iter(batches), tc,
+                                 on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    hist = report["history"]
+    check(len(hist) == TRAIN_STEPS == len(ends), "phase 11a: step count")
+    walls = [start.elapsed_time(ends[0])] + [
+        a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (w, h) in enumerate(zip(walls, hist)):
+        log(f"phase 11a step {i}: wall_ms={w:.4f} "
+            f"tokens_per_s={tokens / (w / 1e3):.1f} loss={h['loss']:.6f} "
+            f"grad_norm={h['grad_norm']:.6f} lr={h['lr']:.6e} | {smi}")
+        check(all(np.isfinite(v) for v in h.values()),
+              f"phase 11a: step {i} metrics not finite: {h}")
+        check(h["grad_norm"] > 0, f"phase 11a: step {i} grad_norm 0")
+    still = sorted(k for k, p in named(model).items()
+                   if torch.equal(p.detach().reshape(-1)[:4096], before[k]))
+    # the norm scales start at 1.0, where a bf16 ulp is 2^-8: with no
+    # float32 master copy (the reference's arithmetic) an update of
+    # lr * (step + wd) ~ 3e-4 rounds back to 1.0
+    check(set(still) <= set(BF16_STILL),
+          f"phase 11a: parameters that did not move: {still}")
+    check(FA.LAUNCHES == h_before,
+          "phase 11a: training launched the attention kernel")
+    steady = float(np.median(walls[1:]))
+    log(f"phase 11a: median step (steps 1-{TRAIN_STEPS - 1}) "
+        f"{steady:.4f} ms, {tokens / (steady / 1e3):.1f} tokens/s; "
+        f"max_memory_allocated={peak}; {len(before) - len(still)} of "
+        f"{len(before)} parameter tensors moved (not {still}: bf16 "
+        f"rounds their updates away at 1.0, no master copy); "
+        f"flash_attention launches unchanged ({sum(h_before.values())}) "
+        f"| {smi}")
+    return model, report["opt_state"]
+
+
+def phase_train_cpu(device) -> None:
+    """Phase 11b: one training step (``make_train_step``, 2
+    micro-batches) on the card and on the CPU from the same weights and
+    tokens: qwen2-7b at ``full()`` width, 1 layer, float32, TF32 off,
+    ``TRAIN_CPU_BATCH`` x ``TRAIN_CPU_SEQ`` tokens. Loss at rtol 1e-5,
+    grad norm at 1e-4, ``m`` / ``v`` at a relative L2 error of 1e-3 a
+    tensor, the update elementwise at ``1e-3 * lr`` where the CPU's
+    gradient is at least 1e-6 (AdamW's first step is ``g / (|g| +
+    1e-8)``: smaller gradients, which most of the 152,064 unembedding
+    columns get, take their direction from their last bits) and at most
+    ``2 * lr`` everywhere (``tests/test_torch_steps.py`` holds the port
+    to the reference the same way)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import qwen2_7b
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.params import named
+    from repro_torch.train.loop import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(qwen2_7b.full(), n_layers=1,
+                              dtype=torch.float32)
+    card = T.init_params(cfg, torch.Generator(device).manual_seed(1),
+                         device=device)
+    host = card.converted(device="cpu")
+    old = {k: p.detach().clone() for k, p in named(host).items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TRAIN_CPU_BATCH, TRAIN_CPU_SEQ + 1)).astype(np.int32))
+    lr = 1e-4
+    step = make_train_step(
+        lambda p, t, y: T.loss_fn(cfg, p, t, y, kernel_backend="torch"),
+        TrainConfig(lr=lr, warmup=0, total_steps=10, micro_batches=2))
+    out = {}
+    for name, model in (("card", card), ("cpu", host)):
+        dev = model.embed.device
+        state = adamw_init(model)
+        t = toks.to(dev)
+        t1 = time.perf_counter()
+        _, state, met = step(model, state, 0, t[:, :-1], t[:, 1:])
+        sync(dev)
+        out[name] = (model, state, {k: float(v) for k, v in met.items()},
+                     time.perf_counter() - t1)
+    (gm, gs, gmet, gt), (cm, cs, cmet, ct) = out["card"], out["cpu"]
+    check(abs(gmet["loss"] - cmet["loss"]) <= 1e-5 * abs(cmet["loss"]),
+          f"phase 11b: loss {gmet['loss']} vs CPU {cmet['loss']}")
+    check(abs(gmet["grad_norm"] - cmet["grad_norm"])
+          <= 1e-4 * cmet["grad_norm"],
+          f"phase 11b: grad_norm {gmet['grad_norm']} vs {cmet['grad_norm']}")
+    worst = dict(m=0.0, v=0.0, upd=0.0, upd_all=0.0)
+    for k, p in named(cm).items():  # compared on the card
+        for mom in ("m", "v"):
+            want = cs[mom][k].to(device)
+            rel = float((gs[mom][k] - want).norm()
+                        / max(float(want.norm()), 1e-30))
+            worst[mom] = max(worst[mom], rel)
+        base = old[k].to(device)
+        diff = ((named(gm)[k].detach() - base)
+                - (p.detach().to(device) - base)).abs()
+        # m = (1 - b1) g after the first step
+        big = (cs["m"][k].to(device) / 0.1).abs() >= 1e-6
+        if bool(big.any()):
+            worst["upd"] = max(worst["upd"], float(diff[big].max()) / lr)
+        worst["upd_all"] = max(worst["upd_all"], float(diff.max()) / lr)
+        del base, diff, big
+    check(worst["m"] <= 1e-3 and worst["v"] <= 1e-3,
+          f"phase 11b: moments off {worst}")
+    check(worst["upd"] <= 1e-3 and worst["upd_all"] <= 2.0,
+          f"phase 11b: updates off {worst}")
+    log(f"phase 11b card vs CPU, 1 layer full width float32, "
+        f"{TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens, 2 micro-batches: "
+        f"loss {gmet['loss']:.7f} / {cmet['loss']:.7f}, grad_norm "
+        f"{gmet['grad_norm']:.7f} / {cmet['grad_norm']:.7f}; worst "
+        f"relative L2 m {worst['m']:.3e} v {worst['v']:.3e} (limit 1e-3); "
+        f"update error / lr {worst['upd']:.3e} where |g| >= 1e-6 (limit "
+        f"1e-3), {worst['upd_all']:.3e} anywhere (limit 2); step "
+        f"{gt:.2f} s card, {ct:.2f} s CPU ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_train_ckpt(device, model, opt_state, work: Path) -> None:
+    """Phase 11c: (i) phase 11a's state saved once and restored once
+    into fresh tensors, timed (the sha256 passes timed apart), bit for
+    bit (bf16 leaves included); (ii) at ``smoke()`` width under
+    ``torch.use_deterministic_algorithms``, in a child process, a run
+    interrupted by a SIGTERM it sends itself inside ``run_training``'s
+    loop, resumed from its checkpoint, equals an uninterrupted run bit
+    for bit; (iii) ``python -m repro_torch.launch.train --arch qwen2-7b
+    --smoke --steps 20 --ckpt-dir DIR`` twice, the second resuming. The
+    child processes run after (i), so they share neither its timing nor
+    the card."""
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import checkpoint as ckpt
+
+    d = work / "full"
+    free = shutil.disk_usage(work).free
+    hashed = []
+    sha256 = ckpt._sha256
+
+    def timed_sha256(path):  # the commit hash, timed apart
+        t = time.perf_counter()
+        out = sha256(path)
+        hashed.append(time.perf_counter() - t)
+        return out
+
+    ckpt._sha256 = timed_sha256
+    try:
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(str(d), TRAIN_STEPS - 1,
+                                    (model, opt_state))
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        like = T.LM(model.cfg, device)
+        with torch.no_grad():
+            for p in like.parameters():
+                p.zero_()
+        like_state = adamw_init(like)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, _ = ckpt.restore_checkpoint(str(d), (like, like_state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        ckpt._sha256 = sha256
+    check(step == TRAIN_STEPS - 1, f"phase 11c: restored step {step}")
+    n = _named_equal((model, opt_state), (like, like_state))
+    log(f"phase 11c checkpoint of 11a's state: {nbytes} bytes ({n} "
+        f"tensors: bf16 weights as |V2, float32 m and v), save "
+        f"{save_s:.2f} s ({nbytes / save_s / 1e9:.3f} GB/s; its sha256 "
+        f"{hashed[0]:.2f} s), restore {restore_s:.2f} s "
+        f"({nbytes / restore_s / 1e9:.3f} GB/s; the commit's sha256 "
+        f"{hashed[1]:.2f} s), bit for bit; {free} bytes free on the disk")
+    del like, like_state
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+    def run(args, what):
+        t0 = time.perf_counter()
+        out = subprocess.run(args, env=env, capture_output=True, text=True,
+                             timeout=600)
+        check(out.returncode == 0,
+              f"phase 11c: {what} failed:\n{out.stdout}\n"
+              f"{out.stderr[-3000:]}")
+        return out.stdout.strip().splitlines(), time.perf_counter() - t0
+
+    lines, secs = run([sys.executable, "-c", _RESUME_CHILD,
+                       str(work / "resume")], "the deterministic resume")
+    check("bit for bit" in lines[-1],
+          f"phase 11c: deterministic resume: {lines[-1]}")
+    log(f"phase 11c {lines[-1]} (a child process, {secs:.1f} s)")
+    launch = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+              "qwen2-7b", "--smoke", "--steps", "20", "--ckpt-dir",
+              str(work / "launch")]
+    runs = [run(launch, f"launch.train run {i + 1}") for i in range(2)]
+    for i, (lines, secs) in enumerate(runs):
+        log(f"phase 11c launch.train run {i + 1} ({secs:.1f} s): "
+            f"{lines[0]} ... "
+            f"{' / '.join(x for x in lines if 'resum' in x)} ... "
+            f"{lines[-1]}")
+    first, second = runs[0][0], runs[1][0]
+    check(not any("resuming" in x for x in first),
+          "phase 11c: the first launch.train run resumed")
+    check(any("resuming after committed step" in x for x in second),
+          "phase 11c: the second launch.train run did not resume")
+    check(second[-1].startswith("[train] done @ step 20"),
+          f"phase 11c: the resumed run ended with {second[-1]}")
+
+
+def phase_train_gnn(device) -> dict:
+    """Phase 11d: ``examples/train_gnn_torch.py``'s ``train`` at ``n =
+    GNN_TRAIN["n"]``, ``m = 4 n``, one burst of ``GNN_TRAIN["burst"]``
+    edges before each of ``GNN_TRAIN["steps"]`` PNA steps: the
+    maintainer on the card (unified engine, kernel_backend "cuda"), the
+    coremaint launch counts from 0 before it and read after it (the
+    training path's launches of a, b and c), the final cores against a
+    fresh peel and the k-order certificate, the loss improved."""
+    import torch
+    from repro_torch.core.decomposition import peel_decomposition
+    from repro_torch.kernels import coremaint as K
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_gnn_torch as TG
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    report, m, _ = TG.train(GNN_TRAIN["n"], GNN_TRAIN["steps"],
+                            GNN_TRAIN["burst"], device, log_every=20,
+                            say=lambda s: log(f"phase 11d {s}"))
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    check(m.kernel_backend == "cuda" and m.device.type == "cuda",
+          f"phase 11d: maintainer on {m.device} / {m.kernel_backend}")
+    for k in MAIN_PATH_KERNELS:
+        check(counts[k] > 0, f"phase 11d: kernel {k} was never launched "
+              "inside the training loop")
+    hist = report["history"]
+    check(len(hist) == GNN_TRAIN["steps"], "phase 11d: step count")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"phase 11d: loss {hist[0]['loss']} -> {hist[-1]['loss']}")
+    want, _ = peel_decomposition(m.src, m.dst, m.valid, m.n)
+    check(torch.equal(m.core, want), "phase 11d: cores != fresh peel")
+    check(certificate_ok(m), "phase 11d: k-order certificate violated")
+    log(f"phase 11d dynamic-graph PNA training, n={m.n} "
+        f"live_edges={m.live_edges} {GNN_TRAIN['steps']} bursts of "
+        f"{GNN_TRAIN['burst']}: loss {hist[0]['loss']:.6f} -> "
+        f"{hist[-1]['loss']:.6f}; launches inside the loop "
+        f"{json.dumps({k: c for k, c in counts.items() if c})}; cores == "
+        f"fresh peel, certificate holds ({wall:.1f} s)")
+    return counts
+
+
+def phase_train_cells(device) -> None:
+    """Phase 11e: ``build_cell`` train cells at ``full()``
+    (``concrete_inputs(0)``), two steps each, the second timed (CUDA
+    events; the first's wall holds its first-call costs): wall, peak
+    memory, finite loss and grad norm, every parameter finite; PNA
+    ``ogb_products`` at a 1/``OGB_TRAIN_CUT`` cut of its nodes and edges
+    (its training step saves about three ``[E, 75]`` float32 tensors a
+    layer: ~223 GB uncut); the coremaint cells on the reference's graph
+    (``coremaint_graph``, one maintainer built with the device peel,
+    both cells' inputs from its tensors), one step each, the cores after
+    it equal to a fresh peel of the table."""
+    import torch
+    from repro_torch.configs import coremaint as CM
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.core.api import CoreMaintainer
+    from repro_torch.core.decomposition import peel_decomposition
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import steps as ST
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), torch.cuda.max_memory_allocated()
+
+    progs = [ST.build_cell(a, s, device=device) for a, s in TRAIN_CELLS]
+    cell = next(c for c in get_arch("pna").SHAPES if c.name == "ogb_products")
+    cut = ShapeCell(f"ogb_products/{OGB_TRAIN_CUT}", cell.kind, dict(
+        cell.params, n_nodes=cell.params["n_nodes"] // OGB_TRAIN_CUT,
+        n_edges=cell.params["n_edges"] // OGB_TRAIN_CUT))
+    progs.append(ST._gnn_cell("pna", get_arch("pna").full(), cut, False,
+                              resolve_device(device)))
+    for prog in progs:
+        t0 = time.perf_counter()
+        inputs = prog.concrete_inputs(0)
+        sync(device)
+        setup = time.perf_counter() - t0
+        _, cold, _ = timed(prog.fn, *inputs)  # the cell's step, first call
+        (params, state, met), ms, peak = timed(prog.fn, *inputs)
+        loss, gn = float(met["loss"]), float(met["grad_norm"])
+        check(np.isfinite(loss) and np.isfinite(gn),
+              f"phase 11e {prog.name}: loss {loss} grad_norm {gn}")
+        check(int(state["count"]) == 2, f"phase 11e {prog.name}: count")
+        check(all(bool(torch.isfinite(p).all()) for p in params.parameters()),
+              f"phase 11e {prog.name}: a parameter is not finite")
+        log(f"phase 11e {prog.name}: wall_ms={ms:.4f} (the second step; "
+            f"the first {cold:.4f}) peak_bytes={peak} loss={loss:.6f} "
+            f"grad_norm={gn:.6f} parameters="
+            f"{sum(p.numel() for p in params.parameters())} "
+            f"(set-up {setup:.1f} s)")
+        del inputs, params, state, met
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = CM.full()
+    m = CoreMaintainer.from_graph(ST.coremaint_graph(cfg),
+                                  capacity=ST._pad512(cfg.edge_capacity),
+                                  init="jax-peel", device=device)
+    sync(device)
+    log(f"phase 11e coremaint maintainer: n={m.n} "
+        f"live_edges={m.live_edges} capacity={m.capacity} "
+        f"(erdos_renyi and the device peel: {time.perf_counter() - t0:.1f} s)")
+    for shape in ("remove_100k", "insert_100k"):
+        prog = ST.build_cell("coremaint", shape, device=device)
+        cell = next(c for c in CM.SHAPES if c.name == shape)
+        inputs = ST.coremaint_batch(cfg, cell, m)  # the steps keep m intact
+        out, ms, peak = timed(prog.fn, *inputs)
+        if shape == "insert_100k":
+            src, dst, valid, _, core, label, stats = out
+        else:
+            (valid, core, label, stats), (src, dst) = out, inputs[:2]
+        t0 = time.perf_counter()
+        want, _ = peel_decomposition(src, dst, valid, cfg.n_vertices)
+        check(torch.equal(core, want),
+              f"phase 11e {prog.name}: cores != fresh peel")
+        log(f"phase 11e {prog.name}: wall_ms={ms:.4f} peak_bytes={peak} "
+            f"capacity={src.shape[0]} "
+            f"{' '.join(f'{k}={int(v)}' for k, v in stats._asdict().items())}"
+            f"; cores == fresh peel ({time.perf_counter() - t0:.1f} s)")
+        del inputs, out, src, dst, valid, core, label
+        torch.cuda.empty_cache()
+
+
+def phase_train(device, smi: str) -> dict:
+    """Phase 11: training on the card (the module docstring); returns
+    phase 11d's coremaint launches by counter."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    t11 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase11_", dir=ROOT / "build"))
+    try:
+        model, opt_state = phase_train_lm(device, smi)
+        phase_train_ckpt(device, model, opt_state, work)
+        del model, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_train_cpu(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = phase_train_gnn(device)
+        torch.cuda.empty_cache()
+        phase_train_cells(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    return counts
+
+
 def phase_deepfm(device) -> list:
     """DeepFM ``full()`` serving on the card with ``use_pallas_fm=True``
     at the recsys serve and retrieval cells, ids made as the reference's
@@ -2651,6 +3211,9 @@ def main() -> int:
     lm_counts, lm_row = phase_lm(device)
     torch.cuda.empty_cache()
 
+    # ---- phase 11: training on the card -----------------------------------
+    train_counts = phase_train(device, smi)
+
     # ---- phase 4b: the same batches on engine="host" ---------------------
     phase_host(device, g, g.edge_array()[pick], stream, history)
 
@@ -2746,6 +3309,10 @@ def main() -> int:
         r["status"] = "on the slice's path (phase 7)"
         if r["name"].startswith("flash_attention["):
             r["lm_launches"] = lm_counts.get(r["name"], 0)
+    for r in rows:
+        if r["name"] in MAIN_PATH_KERNELS:
+            # launched inside phase 11d's training loop (counted from 0)
+            r["train_launches"] = train_counts[r["name"]]
     rows += new_rows + [lm_row]
 
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

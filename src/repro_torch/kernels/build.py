@@ -170,12 +170,13 @@ def launch(name: str, *args) -> None:
 
 
 def forward_only(what: str, *tensors) -> None:
-    """The CUDA kernels have no backward (the reference's Pallas kernels
-    have no VJP either): refuse a CUDA input that would need one."""
+    """The CUDA kernels have no backward, as the reference's Pallas
+    kernels have no VJP: refuse a CUDA input that would need one."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what}: the CUDA kernel is forward-only; its backward comes "
-            "with the training slice (ROADMAP Queue 1 item 13). Call it "
+            f"{what}: the CUDA kernel is forward-only, as the reference's "
+            "Pallas kernel is; training runs the plain path "
+            "(kernel_backend='torch', use_pallas_fm=False). Call it "
             "under torch.no_grad() or on tensors that do not require grad"
         )

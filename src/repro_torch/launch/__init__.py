@@ -1,2 +1,3 @@
 """Launch helpers of the port: the device meshes of the sharded engine
-(``mesh``) and the LM serving launcher (``serve``)."""
+(``mesh``), the cell programs (``steps``), the LM training launcher
+(``train``) and the LM serving launcher (``serve``)."""

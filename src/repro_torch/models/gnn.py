@@ -23,8 +23,11 @@ Each model is an ``nn.Module`` (``PNA``, ``GIN``, ``DimeNet``,
 ``forward`` is the reference's function; the functional names are kept
 (``pna_init``, ``pna_forward``, ...). ``*_params_from_reference`` carry
 the reference's parameter pytree, as numpy arrays, into a module.
-Serving only: parameters have ``requires_grad=False``; NequIP's forces
-differentiate the positions alone.
+Parameters are built with ``requires_grad=False`` (serving takes no
+graph); the training loop (``train/loop.py``) makes them trainable with
+``requires_grad_``, and every forward, NequIP's energy included, is then
+differentiable with respect to them (``launch/steps.py``'s GNN cells).
+``nequip_energy_forces`` differentiates the positions alone.
 
 ``shard_axes`` stays in every config, but only ``None`` is accepted: the
 reference's ``shard_map`` paths (``_sharded_gather``,
@@ -274,12 +277,22 @@ def pna_params_from_reference(params: Mapping[str, Any], cfg: PNAConfig,
     return _from_reference(PNA(cfg, device), params)
 
 
+def _refill(x: Tensor, dead: Tensor, value: float) -> Tensor:
+    """``x`` with the ``dead`` rows set to ``value``: in place, unless a
+    graph is being recorded (the backward of ``msg * msg`` and of the
+    max scatter reads the messages as they were)."""
+    if x.requires_grad:
+        return x.masked_fill(dead, value)
+    return x.masked_fill_(dead, value)
+
+
 def _pna_layer(lyr, h: Tensor, batch: GraphBatch, deg: Tensor,
                scalers: Tuple[Tensor, Tensor]) -> Tensor:
-    """One PNA layer. At most two ``[E, d_hidden]`` tensors are live at
-    once (the masked messages, overwritten in place by their max and min
-    fills, and ``msg * msg``), and none of the layer's ``[N, ...]``
-    temporaries outlives it."""
+    """One PNA layer. Serving holds at most two ``[E, d_hidden]``
+    tensors live at once (the masked messages, overwritten in place by
+    their max and min fills, and ``msg * msg``), and none of the layer's
+    ``[N, ...]`` temporaries outlives it; under autograd the fills are
+    copies."""
     n = h.shape[0]
     recv = batch.receivers
     dead = ~batch.edge_mask[:, None]
@@ -287,9 +300,9 @@ def _pna_layer(lyr, h: Tensor, batch: GraphBatch, deg: Tensor,
     msg.masked_fill_(dead, 0.0)
     mean = _seg_sum(msg, recv, n) / deg[:, None]
     sq = _seg_sum(msg * msg, recv, n) / deg[:, None]
-    mx = _seg_reduce_clamped(msg.masked_fill_(dead, -1e30), recv, n, -1e30,
+    mx = _seg_reduce_clamped(_refill(msg, dead, -1e30), recv, n, -1e30,
                              "amax")
-    mn = _seg_reduce_clamped(msg.masked_fill_(dead, 1e30), recv, n, 1e30,
+    mn = _seg_reduce_clamped(_refill(msg, dead, 1e30), recv, n, 1e30,
                              "amin")
     del msg
     live = deg[:, None] > 1e-5

@@ -17,9 +17,12 @@ CPU; else plain PyTorch, the reference's own second branch), deep MLP on
 the concatenated field embeddings. Retrieval scoring (1 query x 1M
 candidates) is a batched dot against a candidate embedding matrix.
 
-Serving only: the parameters are created with ``requires_grad=False``.
-The FM kernel is forward-only and training DeepFM (optimizer, loss
-steps) is ROADMAP Queue 1 item 13.
+The parameters are created with ``requires_grad=False`` (serving takes
+no graph); the training loop (``train/loop.py``) makes them trainable
+with ``requires_grad_`` and differentiates ``deepfm_loss``. Training runs
+``use_pallas_fm=False``, the reference's default: the FM kernel, like
+the reference's Pallas kernel, has no backward and refuses a CUDA input
+that requires grad.
 """
 from __future__ import annotations
 

@@ -42,9 +42,20 @@ cache's end lands on its last slot.
 
 ``batch_axes`` / ``tp_axis`` (the reference's activation-sharding pins)
 stay in the config, but only ``None`` is accepted: they come with the
-pod dry-run (ROADMAP Queue 1 E). ``remat`` and ``scan_unroll`` change no
-value of a forward and are kept as fields. Serving only: parameters have
-``requires_grad=False`` and ``loss_fn`` is the forward's loss.
+pod dry-run (ROADMAP Queue 1 E). ``scan_unroll`` changes no value and is
+kept as a field.
+
+Training. Parameters are built with ``requires_grad=False`` (serving
+takes no graph); the training loop (``train/loop.py``) makes them
+trainable with ``requires_grad_`` and differentiates ``loss_fn`` with
+``torch.autograd.grad``. ``remat="full"`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, a layer at a time: the reference's
+``jax.checkpoint(..., nothing_saveable)``); it changes no value. The
+training entry points (``launch/train.py``, ``launch/steps.py``, the
+training examples) call ``loss_fn(..., kernel_backend="torch")``: the
+reference trains through XLA and never calls its Pallas attention, and
+kernel h, like every kernel of the port, is forward-only, so
+``kernel_backend="cuda"`` on trainable parameters raises (``forward_only``).
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_backend, resolve_device
@@ -413,7 +425,12 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             mask = q_pos[:, None] >= k_pos[None, :]
             logits.masked_fill_(~mask, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
-        p = torch.exp(logits.sub_(m_new[..., None]))
+        # amax saved ``logits`` for its backward: subtract out of place
+        # when a graph is being recorded
+        shifted = (logits - m_new[..., None] if logits.requires_grad
+                   else logits.sub_(m_new[..., None]))
+        p = torch.exp(shifted)
+        del shifted
         del logits
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(dim=-1)
@@ -666,6 +683,17 @@ def _layer_fwd(cfg: LMConfig, lp, x, positions, kernel_backend="torch"):
     return x, aux
 
 
+def _layer_remat(cfg: LMConfig, lp, x, positions, kernel_backend):
+    """``_layer_fwd`` under ``remat="full"`` while a graph is recorded:
+    nothing of the layer is saved but its inputs, and the backward runs
+    the layer again."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            _layer_fwd, cfg, lp, x, positions, kernel_backend,
+            use_reentrant=False)
+    return _layer_fwd(cfg, lp, x, positions, kernel_backend)
+
+
 def _logits(cfg, params, x):
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x.float() @ params.unembed.float()
@@ -680,13 +708,16 @@ def forward(cfg: LMConfig, params: LM, tokens: Tensor,
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _layer_fwd(cfg, _layer(params, i), x, positions, backend)
+        x, a = _layer_remat(cfg, _layer(params, i), x, positions, backend)
         aux = aux + a
     return _logits(cfg, params, x), aux / cfg.n_layers
 
 
 def loss_fn(cfg: LMConfig, params: LM, tokens, targets,
             kernel_backend: Optional[str] = None) -> Tensor:
+    """Mean next-token NLL plus 0.01 x the MoE aux loss (float32).
+    Differentiable on the plain path; the training entry points pass
+    ``kernel_backend="torch"`` (the module docstring says why)."""
     logits, aux = forward(cfg, params, tokens, kernel_backend)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]

@@ -1,6 +1,6 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``, the
-``scripts/`` that time and profile it and
-``examples/stream_maintenance_torch.py`` import neither ``jax`` nor the
+``scripts/`` that time and profile it and the port's examples
+(``examples/*_torch.py``) import neither ``jax`` nor the
 reference package ``repro``, and the port's entry points run on the card
 unless the CPU is asked for."""
 import ast
@@ -33,7 +33,11 @@ def test_import_every_module_without_jax_or_repro():
                      if k == "jax" or k.startswith(("jax.", "jaxlib"))
                      or k == "repro" or k.startswith("repro."))
         assert not bad, bad
-        assert len(names) >= 51, names
+        assert len(names) >= 62, names
+        for new in ("optim.adamw", "optim.compression", "optim.params",
+                    "optim.schedule", "train.checkpoint", "train.fault",
+                    "train.loop", "launch.steps", "launch.train"):
+            assert "repro_torch." + new in names, new
         print("ok", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -56,8 +60,11 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py"))
-    + [ROOT / "chip_smoke.py",
-       ROOT / "examples" / "stream_maintenance_torch.py"]
+    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "examples" / f for f in ("stream_maintenance_torch.py",
+                                       "train_lm_torch.py",
+                                       "train_gnn_torch.py",
+                                       "quickstart_torch.py")]
     + [ROOT / "scripts" / f for f in ("profile_burst.py",
                                       "time_attention.py",
                                       "time_coremaint.py",
