@@ -8,10 +8,12 @@ unweighted and weighted, on the host engine, and on the sharded engine
 rank — at full width, serves the GNN stack (PNA, GIN, DimeNet,
 NequIP) at ``full()`` width on the GNN cells, serves the LM stack
 (qwen2-7b with every prefill attention on the attention kernel, and
-deepseek-v2-lite-16b) at ``full()`` width and depth, and trains on the
+deepseek-v2-lite-16b) at ``full()`` width and depth, trains on the
 card (qwen2-7b at full width, the dynamic-graph GNN trainer whose
 maintainer launches the core-maintenance kernels between steps, and
-``launch/steps.py``'s train cells).
+``launch/steps.py``'s train cells), and runs the sharded paths
+(``parallel/sharding.py``'s placements, the LM and GNN pins, the pod
+dry-run) over a world of one NCCL rank.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -203,6 +205,22 @@ Phases:
      4,847,571, 140,000,256 slots) with the cores after the step equal
      to a fresh peel. The rows of kernels a, b and c in the kernels line
      gain ``train_launches`` (phase 11d's).
+ 12. (run after phase 8, in its world of one NCCL rank) the sharded
+     paths (``phase_sharded_models``): (a) qwen2-7b ``full()`` prefill
+     at 1 x 4,096 with its parameters placed by ``shard_params`` over a
+     ``(1, 1)`` mesh and ``launch/steps.py``'s pinned config, on kernel h
+     through ``local_map`` (28 launches a prefill), logits and caches
+     against the unsharded prefill of the same weights, both timed; (b)
+     ``build_cell``'s pinned PNA ``full_graph_sm`` and DimeNet
+     ``molecule`` (bf16) steps on placed inputs against their unpinned
+     steps, and the qwen2-7b ``train_4k`` cell under ``multi_pod`` on a
+     ``(1, 1, 1)`` mesh cut to 2 layers at 2 x 4,096 against its step on
+     plain tensors; (c) ``python -m repro_torch.launch.dryrun
+     --both-meshes`` over six cells as a child process started first:
+     each cell's ``model_flops`` share of its matmul FLOPs x devices
+     held within 25% of the CPU's, its collective bytes by kind,
+     argument bytes and dominant roofline term printed. The attention
+     rows of the kernels line gain ``sharded_launches`` (12a's).
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
@@ -296,6 +314,25 @@ TRAIN_CELLS = (("deepfm", "train_batch"), ("pna", "full_graph_sm"),
                ("gin-tu", "minibatch_lg"), ("dimenet", "molecule"),
                ("nequip", "molecule"))
 OGB_TRAIN_CUT = 8
+# phase 12: the sharded paths over a world of one NCCL rank, qwen2-7b's
+# train_4k under multi_pod cut to 2 layers at 2 x 4,096 (full width),
+# the dry-run child's cells and, for each and each mesh, the share of its
+# per-device matmul FLOPs x devices that model_flops explains, as the CPU
+# measured it (torch 2.13; PERF.md), held within +-25% (pna:
+# model_flops has no closed form, so the ratio is 0 and dot_flops > 0)
+P12_TRAIN_LAYERS, P12_TRAIN_BATCH = 2, 2
+P12_CELLS = ("qwen2-7b:train_4k", "qwen2-7b:prefill_32k",
+             "qwen2-7b:decode_32k", "deepseek-v2-lite-16b:decode_32k",
+             "pna:full_graph_sm", "deepfm:retrieval_cand")
+P12_RATIO = {
+    ("qwen2-7b", "train_4k"): (0.2339, 0.2339),
+    ("qwen2-7b", "prefill_32k"): (0.06137, 0.06137),
+    ("qwen2-7b", "decode_32k"): (0.5463, 0.5463),
+    ("deepseek-v2-lite-16b", "decode_32k"): (0.02936, 0.01488),
+    ("pna", "full_graph_sm"): (0.0, 0.0),
+    ("deepfm", "retrieval_cand"): (0.9996, 0.9996),
+}  # (16x16, 2x16x16)
+P12_DRYRUN_TIMEOUT = 600
 BF16_STILL = ("final_norm", "layers.ln_attn", "layers.ln_ffn")
 # phase 6's ell_stat rows: (op, values), values from stat_values
 STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
@@ -2907,7 +2944,7 @@ def phase_train_cells(device) -> None:
         cell.params, n_nodes=cell.params["n_nodes"] // OGB_TRAIN_CUT,
         n_edges=cell.params["n_edges"] // OGB_TRAIN_CUT))
     progs.append(ST._gnn_cell("pna", get_arch("pna").full(), cut, False,
-                              resolve_device(device)))
+                              True, False, resolve_device(device)))
     for prog in progs:
         t0 = time.perf_counter()
         inputs = prog.concrete_inputs(0)
@@ -2986,6 +3023,302 @@ def phase_train(device, smi: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sharded paths (parallel/sharding.py, the pins, the dry-run)
+# ---------------------------------------------------------------------------
+def start_dryrun_child(out: Path):
+    """Phase 12c's child, started first so it runs on the host's cores
+    while 12a and 12b hold the card: ``python -m repro_torch.launch.dryrun
+    --both-meshes --cells ...`` on fake 16x16 and 2x16x16 worlds of its
+    own (no card, no real process group)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--both-meshes", "--cells", ",".join(P12_CELLS), "--out",
+           str(out)]
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dryrun_child(proc, out: Path, t_start: float) -> None:
+    """Phase 12c: the child's exit code 0, then each cell's line: the
+    matmul FLOPs x devices that ``model_flops`` explains (held to
+    ``P12_RATIO``), wire bytes by collective kind, argument bytes a
+    device and the dominant roofline term."""
+    try:
+        text, _ = proc.communicate(timeout=P12_DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"phase 12c: the dry-run child ran over "
+              f"{P12_DRYRUN_TIMEOUT} s")
+    if proc.returncode != 0:
+        print(text[-6000:], file=sys.stderr)
+    check(proc.returncode == 0,
+          f"phase 12c: the dry-run child exited {proc.returncode}")
+    results = json.loads(out.read_text())
+    check(len(results) == 2 * len(P12_CELLS),
+          f"phase 12c: {len(results)} results, not {2 * len(P12_CELLS)}")
+    for r in results:
+        key = (r["arch"], r["shape"])
+        want = P12_RATIO[key][0 if r["mesh"] == "16x16" else 1]
+        got = r["model_vs_hlo"] or 0.0
+        coll = {k: v for k, v in r["collective_bytes"].items()
+                if k != "op_counts" and v}
+        log(f"phase 12c dry-run {r['arch']}:{r['shape']} on {r['mesh']}: "
+            f"model_flops / (dot_flops x {r['n_devices']}) = {got:.6f} "
+            f"(CPU {want}) dot_flops={r['dot_flops']:.6e} "
+            f"collective_bytes={json.dumps(coll)} "
+            f"ops={json.dumps(r['collective_bytes']['op_counts'])} "
+            f"argument_bytes={r['mem']['argument_bytes']} "
+            f"peak_bytes={r['mem']['peak_bytes']} "
+            f"dominant={r['roofline']['dominant']} "
+            f"t_compute_s={r['roofline']['t_compute_s']:.6e} "
+            f"t_memory_s={r['roofline']['t_memory_s']:.6e} "
+            f"t_collective_s={r['roofline']['t_collective_s']:.6e} "
+            f"run_s={r['compile_s']}")
+        check(r["dot_flops"] > 0, f"phase 12c {key}: no matmul counted")
+        if want == 0.0:
+            check(got == 0.0, f"phase 12c {key}: ratio {got}, want 0")
+        else:
+            check(abs(got / want - 1.0) <= 0.25,
+                  f"phase 12c {key} {r['mesh']}: ratio {got} outside "
+                  f"+-25% of the CPU's {want}")
+    log(f"phase 12c: the dry-run child's {len(results)} cells in "
+        f"{time.perf_counter() - t_start:.1f} s (beside 12a and 12b)")
+
+
+def step_errors(tag, got, want, lr, g_min=1e-6, upd_tol=1e-2,
+                m_tol=1e-3, rel=1e-5) -> None:
+    """Two training steps' results ``(params, opt_state, metrics)`` from
+    the same start (``got`` may hold DTensors): loss and grad norm within
+    ``rel`` relative (1e-5; 1e-3 for the bfloat16 steps, whose atomics
+    reorder), each first moment (0.1 x the clipped gradient) within
+    ``m_tol`` relative L2, each parameter's update within ``upd_tol`` x
+    ``lr`` where ``want``'s gradient is at least ``g_min`` and 2 ``lr``
+    everywhere (tests/test_torch_steps.py's rule: AdamW's direction at a
+    ~1e-8 gradient is its rounding)."""
+    import torch
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    (pg, og, mg), (pw, ow, mw) = got, want
+    loss_g, loss_w = float(full(mg["loss"])), float(mw["loss"])
+    gn_g, gn_w = float(full(mg["grad_norm"])), float(mw["grad_norm"])
+    check(abs(loss_g - loss_w) <= rel * abs(loss_w) + 1e-7,
+          f"phase 12b {tag}: loss {loss_g} vs {loss_w}")
+    check(abs(gn_g - gn_w) <= rel * abs(gn_w) + 1e-7,
+          f"phase 12b {tag}: grad norm {gn_g} vs {gn_w}")
+    worst_m = worst_u = 0.0
+    params_w = dict(pw.named_parameters())
+    for name, p in pg.named_parameters():
+        m_g, m_w = full(og["m"][name]).float(), ow["m"][name].float()
+        denom = float(m_w.norm()) or 1.0
+        worst_m = max(worst_m, float((m_g - m_w).norm()) / denom)
+        upd = (full(p).detach().float()
+               - params_w[name].detach().float()).abs()
+        big = (m_w / 0.1).abs() >= g_min
+        if bool(big.any()):
+            worst_u = max(worst_u, float(upd[big].max()) / lr)
+        check(float(upd.max()) <= 2 * lr,
+              f"phase 12b {tag}: {name} moved {float(upd.max())} apart")
+    log(f"phase 12b {tag}: loss {loss_g:.8f} vs {loss_w:.8f}, grad norm "
+        f"{gn_g:.6f} vs {gn_w:.6f}, moments worst relative L2 "
+        f"{worst_m:.3e} (limit {m_tol}), updates worst {worst_u:.3e} lr "
+        f"where |g| >= {g_min} (limit {upd_tol})")
+    check(worst_m <= m_tol, f"phase 12b {tag}: moments {worst_m}")
+    check(worst_u <= upd_tol, f"phase 12b {tag}: updates {worst_u} lr")
+
+
+def phase_sharded_models(device) -> dict:
+    """Phase 12 on a world of one NCCL rank (opened here when none is):
+
+    (a) qwen2-7b ``full()`` (28 layers, bf16) prefill at 1 x 4,096 with
+      its parameters placed by ``shard_params(lm_param_specs(cfg))`` as
+      DTensors over a ``(1, 1)`` ``("data", "model")`` mesh, the config
+      ``launch/steps.py``'s pinned one (``batch_axes="data"``,
+      ``tp_axis="model"``, ``attn_chunk=2048``) on kernel h (each layer's
+      attention a ``local_map`` region: one launch a layer a rank),
+      tokens placed by ``lm_batch_spec``: 28 launches a prefill, the last
+      logits and every layer's cache against the unsharded prefill of
+      the same weights (before they were placed; relative L2 at most
+      1e-3, bitwise equality reported), both timed (median of 5 CUDA
+      events after a warm-up) with their peak memory;
+    (b) ``build_cell("pna", "full_graph_sm")`` (pinned: ``shard_axes``
+      over the mesh) and DimeNet ``molecule`` (pinned: ``shard_axes`` and
+      ``msg_dtype=bfloat16``), one step each with their inputs placed by
+      ``in_specs``: PNA against the same step built with
+      ``REPRO_NO_PIN=1``; DimeNet against the unsharded bf16 step (both
+      under deterministic scatters), and
+      against the ``REPRO_NO_PIN`` float32 step within 2x the unsharded
+      bf16 step's own distance to it (``step_errors``); then
+      ``build_cell``'s qwen2-7b ``train_4k`` cell under ``multi_pod`` on
+      a ``(1, 1, 1)`` ``("pod", "data", "model")`` mesh, cut to
+      ``P12_TRAIN_LAYERS`` layers at ``P12_TRAIN_BATCH`` x 4,096 (256 x
+      4,096 at 28 layers does not fit one card), one step against the
+      same cell's step on plain tensors;
+    (c) the dry-run child (``start_dryrun_child``), read last.
+
+    Returns the sharded path's kernel launches by ``flash_attention``
+    counter (the counts set to 0 after the unsharded prefills, read
+    after the sharded ones)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch, qwen2_7b
+    from repro_torch.configs.common import ShapeCell
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as SH
+
+    t12 = time.perf_counter()
+    work = Path(tempfile.mkdtemp())
+    child = start_dryrun_child(work / "dryrun.json")
+    try:  # the child is stopped if 12a or 12b fails
+        if not dist.is_initialized():
+            start_world()
+        mesh = make_mesh((1, 1), ("data", "model"))
+        key = FA.launch_key(True, torch.bfloat16, 128)
+
+        # ---- (a) the sharded qwen2-7b prefill on kernel h -----------------
+        full = qwen2_7b.full()
+        cfg = dataclasses.replace(full, batch_axes="data", tp_axis="model",
+                                  attn_chunk=2048)
+        t0 = time.perf_counter()
+        model = T.init_params(
+            full, torch.Generator(device=device).manual_seed(0),
+            device=device)
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, full.vocab, (1, LM_PREFILL)).astype(np.int32)).to(device)
+        sync(device)
+        log(f"phase 12a qwen2-7b full(): init "
+            f"{time.perf_counter() - t0:.1f} s")
+        with torch.no_grad():
+            last_u, cache_u = T.prefill(full, model, prompt, "cuda")
+            ms_u, peak_u, _, _ = gnn_time(
+                lambda: T.prefill(full, model, prompt, "cuda"))
+            FA.reset_launches()  # from here on, the sharded path's launches
+            SH.shard_params(model, SH.lm_param_specs(cfg), mesh)
+            toks = SH.distribute(prompt, SH.lm_batch_spec(False), mesh)
+            n0 = FA.LAUNCHES[key]
+            last_s, cache_s = T.prefill(cfg, model, toks, "cuda")
+            sync(device)
+            check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+                  f"phase 12a: {FA.LAUNCHES[key] - n0} kernel launches in the "
+                  f"sharded prefill, not one a layer ({cfg.n_layers})")
+            last_s = last_s.full_tensor()
+            cache_s = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                       for k, v in cache_s.items()}
+            errs = lm_errors(last_s, cache_s, last_u, cache_u)
+            same = torch.equal(last_s, last_u) and all(
+                torch.equal(cache_s[k], cache_u[k]) for k in ("k", "v"))
+            log(f"phase 12a sharded vs unsharded prefill: relative L2 "
+                f"(logits, then layers) max {max(errs):.3e} (limit 1e-3), bit "
+                f"for bit {same}")
+            check(max(errs) <= 1e-3, "phase 12a: sharded prefill != unsharded")
+            del last_s, cache_s, last_u, cache_u
+            ms_s, peak_s, _, _ = gnn_time(
+                lambda: T.prefill(cfg, model, toks, "cuda"))
+        log(f"phase 12a qwen2-7b prefill 1x{LM_PREFILL}: sharded wall_ms="
+            f"{ms_s:.4f} peak_bytes={peak_s} beside unsharded wall_ms="
+            f"{ms_u:.4f} peak_bytes={peak_u} (median of {SERVE_CALLS}); "
+            f"{cfg.n_layers} launches a prefill")
+        counts = {k: c for k, c in FA.LAUNCHES.items() if c}
+        del model, toks
+        torch.cuda.empty_cache()
+
+        # ---- (b) sharded training steps ------------------------------------
+        def run(prog, on_mesh):
+            inputs = prog.concrete_inputs(0)
+            if on_mesh is not None:
+                inputs = SH.place(tuple(inputs), prog.in_specs, on_mesh)
+            out = prog.fn(*inputs)
+            sync(device)
+            return out
+
+        def no_pin(arch, shape):
+            os.environ["REPRO_NO_PIN"] = "1"
+            try:
+                return ST.build_cell(arch, shape, device=device)
+            finally:
+                del os.environ["REPRO_NO_PIN"]
+
+        t0 = time.perf_counter()
+        # deterministic scatters (index_add_ sorts instead of adding
+        # atomically), so that both sides of each comparison sum in one order
+        # (PNA's ill-conditioned rows amplify the order's 1e-7 to 1e-3)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        pna = ST.build_cell("pna", "full_graph_sm", device=device)
+        check(pna.abstract_inputs[0].cfg.shard_axes == ("data", "model"),
+              "phase 12b: the full PNA cell is not pinned")
+        step_errors("pna full_graph_sm sharded vs REPRO_NO_PIN",
+                    run(pna, mesh), run(no_pin("pna", "full_graph_sm"), None),
+                    1e-3)
+        dev = resolve_device(device)
+        dim_cell = next(c for c in get_arch("dimenet").SHAPES
+                        if c.name == "molecule")
+        dim = ST.build_cell("dimenet", "molecule", device=device)
+        check(dim.abstract_inputs[0].cfg.msg_dtype == torch.bfloat16,
+              "phase 12b: the full DimeNet cell is not pinned to bf16")
+        sharded = run(dim, mesh)
+        bf16 = run(ST._gnn_cell("dimenet", dataclasses.replace(
+            get_arch("dimenet").full(), msg_dtype=torch.bfloat16), dim_cell,
+            False, False, False, dev), None)
+        f32 = run(no_pin("dimenet", "molecule"), None)
+        step_errors("dimenet molecule (bf16) sharded vs unsharded bf16",
+                    sharded, bf16, 1e-3, upd_tol=2.0, m_tol=5e-2, rel=1e-3)
+        yard = abs(float(bf16[2]["loss"]) - float(f32[2]["loss"]))
+        got = abs(float(sharded[2]["loss"].full_tensor())
+                  - float(f32[2]["loss"]))
+        log(f"phase 12b dimenet molecule: |loss - REPRO_NO_PIN float32 loss| "
+            f"sharded bf16 {got:.6e}, unsharded bf16 {yard:.6e} (limit 2x + "
+            f"1e-6)")
+        check(got <= 2 * yard + 1e-6, "phase 12b dimenet: sharded bf16 loss "
+              "farther from float32 than 2x the unsharded bf16's")
+        del sharded, bf16, f32
+        torch.use_deterministic_algorithms(False)
+        log(f"phase 12b GNN steps {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        lm_cell = next(c for c in get_arch("qwen2-7b").SHAPES
+                       if c.name == "train_4k")
+        cut = ShapeCell(f"train_4k/cut{P12_TRAIN_BATCH}", lm_cell.kind, dict(
+            lm_cell.params, batch=P12_TRAIN_BATCH))
+        cut_cfg = dataclasses.replace(full, n_layers=P12_TRAIN_LAYERS)
+        prog = ST._lm_cell("qwen2-7b", cut_cfg, cut, True, True, False, dev)
+        check(prog.abstract_inputs[0].cfg.batch_axes == ("pod", "data"),
+              "phase 12b: the multi_pod qwen2-7b cell is not pinned")
+        torch.cuda.reset_peak_memory_stats()
+        sharded = run(prog, mesh3)
+        peak = torch.cuda.max_memory_allocated()
+        step_errors(f"qwen2-7b train_4k multi_pod {P12_TRAIN_LAYERS} layers "
+                    f"{P12_TRAIN_BATCH}x4096 sharded vs plain", sharded,
+                    run(prog, None), 1e-4, upd_tol=2.0, m_tol=1e-2, rel=1e-3)
+        log(f"phase 12b qwen2-7b multi_pod step: peak_bytes={peak} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del sharded
+        torch.cuda.empty_cache()
+    except BaseException:
+        child.kill()
+        child.communicate()
+        raise
+
+    finish_dryrun_child(child, work / "dryrun.json", t12)
+    log(f"phase 12 launches={json.dumps(counts)}; every phase 12 check "
+        f"passed in {time.perf_counter() - t12:.1f} s")
     return counts
 
 
@@ -3246,6 +3579,9 @@ def main() -> int:
                 whistory=whistory)
     del start4, history, start5, whistory
     phase_8(device, g.edge_array()[pick], stream, kept, rows)
+
+    # ---- phase 12: the sharded paths, in phase 8's world ------------------
+    sharded_counts = phase_sharded_models(device)
     torch.distributed.destroy_process_group()
 
     # ---- phases 6-7 set-up: the ER graph, its ELL matrix, its cores -----
@@ -3309,10 +3645,13 @@ def main() -> int:
         r["status"] = "on the slice's path (phase 7)"
         if r["name"].startswith("flash_attention["):
             r["lm_launches"] = lm_counts.get(r["name"], 0)
+            r["sharded_launches"] = sharded_counts.get(r["name"], 0)
     for r in rows:
         if r["name"] in MAIN_PATH_KERNELS:
             # launched inside phase 11d's training loop (counted from 0)
             r["train_launches"] = train_counts[r["name"]]
+    lm_row["sharded_launches"] = sharded_counts.get(
+        lm_row["name"].split(" ")[0], 0)  # the row of phase 10's counter
     rows += new_rows + [lm_row]
 
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,14 +1,16 @@
 """Device meshes of the sharded engine, over ``torch.distributed``.
 
-The port of the reference's ``launch/mesh.py`` for the edge meshes: the
-1-D edge mesh and the 2-axis ``(d_e, d_v)`` edge x vertex mesh of the
-halo layout. The reference builds a ``jax.sharding.Mesh`` over the
-local devices; the port is SPMD, so a mesh is a ``DeviceMesh`` over the
-ranks of an already initialized world: NCCL on the card (one rank a
-card), gloo on the CPU. The library never initializes a process group
-itself — the caller does, with ``torch.distributed.init_process_group``
-(``torchrun`` sets its address, world size and rank in the
-environment).
+The port of the reference's ``launch/mesh.py``: the production meshes of
+the cells (``make_production_mesh``, ``make_mesh``), the 1-D edge mesh
+and the 2-axis ``(d_e, d_v)`` edge x vertex mesh of the halo layout, and
+``HW``, the card's figures the dry-run's roofline divides by. The
+reference builds a ``jax.sharding.Mesh`` over the local devices; the
+port is SPMD, so a mesh is a ``DeviceMesh`` over the ranks of an already
+initialized world: NCCL on the card (one rank a card), gloo on the CPU
+(``launch/dryrun.py``: a fake world of 256 or 512 of its own process).
+The library never initializes a real process group itself — the caller
+does, with ``torch.distributed.init_process_group`` (``torchrun`` sets
+its address, world size and rank in the environment).
 """
 from __future__ import annotations
 
@@ -39,6 +41,59 @@ def _require_world() -> int:
 
 def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+# The card's figures (NVIDIA H100 SXM5 80GB, the data sheet's): dense
+# bf16 tensor-core rate, HBM3 rate and size, NVLink 4 (18 links of 25 GB/s
+# a direction, 450 GB/s a card within an 8-card node) and, for a group
+# that spans more than one node of 8, one 400 Gb/s NDR InfiniBand port a
+# card. The dry-run's collective term divides a collective's wire bytes
+# by ``ici_bw_per_link * ici_links`` when the group's ranks lie in one
+# node (``ranks_per_node``) and by ``ib_bw_per_gpu`` otherwise.
+HW = {
+    "name": "NVIDIA H100 80GB HBM3",
+    "peak_flops_bf16": 989e12,     # per card, dense
+    "hbm_bw": 3.35e12,             # bytes/s per card
+    "ici_bw_per_link": 25e9,       # NVLink 4: bytes/s per link a direction
+    "ici_links": 18,               # NVLink 4 links per card
+    "hbm_bytes": 80e9,
+    "ib_bw_per_gpu": 50e9,         # bytes/s, 400 Gb/s NDR a card
+    "ranks_per_node": 8,
+}
+
+
+def make_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` with dimension names ``axes`` over
+    the ranks of the initialized world, in rank order
+    (``arange(world).reshape(shape)``). A world smaller than the mesh
+    raises ``ValueError`` with the reference's message; a mesh spans the
+    whole world, so a larger one raises too."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, axes = tuple(int(d) for d in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         "length")
+    world = _require_world()
+    size = int(torch.Size(shape).numel())
+    if world < size:
+        raise ValueError(f"Number of devices {world} must be >= the "
+                         f"product of mesh_shape {shape}")
+    if world > size:
+        raise ValueError(f"mesh_shape {shape} covers {size} of the "
+                         f"world's {world} ranks: a mesh spans the whole "
+                         "world (one rank a device)")
+    return DeviceMesh(_device_type(), torch.arange(world).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 ``("data", "model")`` single pod (256 ranks) or 2x16x16
+    ``("pod", "data", "model")`` two-pod (512 ranks), over the
+    initialized world (``launch/dryrun.py`` makes a fake one)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def make_edge_mesh(n_devices=None, axis: str = "data"):

@@ -1,6 +1,6 @@
-"""Cell programs: (arch x shape) -> step function + inputs.
+"""Cell programs: (arch x shape) -> step function + inputs + shardings.
 
-The reference's ``launch/steps.py`` for one card. A ``CellProgram``
+The reference's ``launch/steps.py``. A ``CellProgram``
 holds the step function of a cell (a training step for the ``train``,
 GNN and coremaint cells, the serving call for ``prefill``, ``decode``,
 ``serve`` and ``retrieval``), its inputs as meta-device tensors of the
@@ -8,8 +8,14 @@ concrete inputs' shapes and dtypes (``abstract_inputs``: an ``LM(cfg,
 "meta")``, ``adamw_init`` of it, meta batches), and ``concrete_inputs``
 (``seed`` -> the inputs on the program's device; the reference gives
 them to smoke cells only, the port to every cell, so the card can run
-the full ones). One code path builds the function; only the input source
-differs.
+the full ones), and ``in_specs`` / ``out_specs``: the reference's
+partition specs, leaf by leaf, as ``parallel.sharding.P`` trees (a
+module's spec a tree by the reference's parameter names,
+``sharding.param_tree``). ``sharding.place(x, spec, mesh)`` lays an
+input out by its spec as DTensors, and the step then runs SPMD over the
+mesh (``launch/dryrun.py`` on a fake world of meta shards; tests and
+the smoke on real ranks). One code path builds the function; only the
+input source differs.
 
 Training steps are the reference's: the loss's gradients by
 ``torch.autograd.grad``, ``clip_by_global_norm(grads, 1.0)`` and
@@ -23,15 +29,19 @@ attention kernel is forward-only); DeepFM trains with
 The GNN batches are the reference's ``_concrete_graph_batch`` draws, bit
 for bit (numpy, seeded), with the index columns as int64; LM tokens and
 model parameters are drawn from a ``torch.Generator`` seeded ``seed``
-(the numbers differ from ``jax.random``'s). The full (non-smoke) LM
-cells take the reference's streaming attention pin, ``attn_chunk=2048``
-(not with ``REPRO_NO_PIN`` set, as in the reference). Its sharding pins
-(``batch_axes``, ``tp_axis``, the GNN ``shard_axes`` with DimeNet's
-``msg_dtype``), ``in_specs`` / ``out_specs`` (``None`` here) and
-``multi_pod=True`` come with the pod dry-run: ROADMAP Queue 1 E.
+(the numbers differ from ``jax.random``'s). The full (non-smoke) cells
+take the reference's pins unless ``REPRO_NO_PIN`` is set: the LMs
+``batch_axes`` (``("pod", "data")`` with ``multi_pod``, else ``"data"``),
+``tp_axis="model"`` and the streaming attention ``attn_chunk=2048``; the
+GNNs ``shard_axes`` (the whole mesh, flattened) and, on DimeNet,
+``msg_dtype=bfloat16``. Smoke cells stay unpinned, as in the reference.
+A step run on DTensors runs under
+``implicit_replication`` (a plain tensor beside them, a learning rate
+or a mask saved for the backward, taken as replicated).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Callable, Optional, Tuple
@@ -48,11 +58,11 @@ from ..models import transformer as tf_mod
 from ..models.gnn import GraphBatch
 from ..optim.adamw import adamw_init, adamw_update, clip_by_global_norm
 from ..optim.params import trainable
+from ..parallel import sharding as shard_rules
+from ..parallel.sharding import P, is_dtensor, param_tree, replicated_region
 
 Tensor = torch.Tensor
 META = "meta"
-NOT_PORTED = ("the pod dry-run's sharding (multi_pod, batch_axes / tp_axis "
-              "/ shard_axes pins, in_specs / out_specs) is ROADMAP Queue 1 E")
 
 
 @dataclasses.dataclass
@@ -62,7 +72,7 @@ class CellProgram:
     name: str
     fn: Callable[..., Any]
     abstract_inputs: Tuple[Any, ...]
-    in_specs: Optional[Tuple[Any, ...]]      # None: ROADMAP Queue 1 E
+    in_specs: Optional[Tuple[Any, ...]]      # P trees (the dry-run's)
     out_specs: Optional[Any]
     concrete_inputs: Optional[Callable[..., Tuple[Any, ...]]] = None
     donate: Tuple[int, ...] = ()
@@ -80,13 +90,15 @@ def _train_step(loss_fn: Callable[..., Tensor], lr: float):
     and AdamW at ``lr``, in place."""
     def step(params, opt_state, *batch):
         named = trainable(params)
-        with torch.enable_grad():
-            loss = loss_fn(params, *batch)
-            grads = torch.autograd.grad(loss, list(named.values()),
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        grads, gn = clip_by_global_norm(dict(zip(named, grads)), 1.0)
-        adamw_update(named, grads, opt_state, lr)
+        sharded = any(is_dtensor(t) for t in named.values())
+        with (replicated_region() if sharded else contextlib.nullcontext()):
+            with torch.enable_grad():
+                loss = loss_fn(params, *batch)
+                grads = torch.autograd.grad(loss, list(named.values()),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+            grads, gn = clip_by_global_norm(dict(zip(named, grads)), 1.0)
+            adamw_update(named, grads, opt_state, lr)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gn}
 
     return step
@@ -100,11 +112,26 @@ def _lm_train_step(cfg):
         cfg, p, tokens, targets, kernel_backend="torch"), 1e-4)
 
 
-def _lm_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
-             dev: torch.device) -> CellProgram:
-    if not for_smoke and not os.environ.get("REPRO_NO_PIN"):
-        cfg = dataclasses.replace(cfg, attn_chunk=2048)  # streaming (D2)
+def _flat(multi_pod: bool) -> Tuple[str, ...]:
+    return ("pod", "data", "model") if multi_pod else ("data", "model")
+
+
+_METRICS_SPEC = {"loss": P(), "grad_norm": P()}
+
+
+def _lm_cell(arch_name: str, cfg, cell: ShapeCell, multi_pod: bool,
+             pin: bool, for_smoke: bool, dev: torch.device) -> CellProgram:
+    if pin:
+        cfg = dataclasses.replace(
+            cfg,
+            batch_axes=("pod", "data") if multi_pod else "data",
+            tp_axis="model",
+            attn_chunk=2048,  # streaming-softmax KV chunking (D2)
+        )
     p_abs = tf_mod.LM(cfg, META)
+    p_spec = shard_rules.lm_param_specs(cfg, None)
+    batch_spec = shard_rules.lm_batch_spec(multi_pod)
+    opt_spec = shard_rules.opt_state_specs(p_spec)
     tok_abs = lambda *shape: torch.empty(shape, dtype=torch.int32,  # noqa
                                          device=META)
 
@@ -119,6 +146,8 @@ def _lm_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
         b, s = cell.params["batch"], cell.params["seq"]
         fn = _lm_train_step(cfg)
         abstract = (p_abs, adamw_init(p_abs), tok_abs(b, s), tok_abs(b, s))
+        in_specs = (p_spec, opt_spec, batch_spec, batch_spec)
+        out_specs = (p_spec, opt_spec, _METRICS_SPEC)
         donate = (0, 1)
 
         def concrete(seed: int = 0):
@@ -135,6 +164,9 @@ def _lm_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
             return tf_mod.prefill(cfg, params, tokens)
 
         abstract = (p_abs, tok_abs(b, s))
+        in_specs = (p_spec, batch_spec)
+        cache_spec = shard_rules.lm_cache_specs(cfg, multi_pod, batch=b)
+        out_specs = (P(batch_spec[0], "model"), cache_spec)
         donate = ()
 
         def concrete(seed: int = 0):
@@ -150,6 +182,14 @@ def _lm_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
 
         abstract = (p_abs, tf_mod.init_cache(cfg, b, t, device=META),
                     tok_abs(b))
+        pods = 2 if multi_pod else 1
+        tok_spec = (
+            P(("pod", "data") if multi_pod else "data")
+            if b % (16 * pods) == 0 else P(None)
+        )
+        cache_spec = shard_rules.lm_cache_specs(cfg, multi_pod, batch=b)
+        in_specs = (p_spec, cache_spec, tok_spec)
+        out_specs = (P(tok_spec[0], "model"), cache_spec)
         donate = (1,)
 
         def concrete(seed: int = 0):
@@ -164,7 +204,7 @@ def _lm_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
         raise ValueError(cell.kind)
     return CellProgram(
         name=f"{arch_name}:{cell.name}", fn=fn, abstract_inputs=abstract,
-        in_specs=None, out_specs=None,
+        in_specs=in_specs, out_specs=out_specs,
         concrete_inputs=concrete, donate=donate,
     )
 
@@ -278,14 +318,29 @@ def _gnn_labels(label_kind: str, cfg, n: int, g: int, device) -> Tensor:
     return torch.from_numpy(lab).to(device)
 
 
-def _gnn_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
-              dev: torch.device) -> CellProgram:
+def _gnn_cell(arch_name: str, cfg, cell: ShapeCell, multi_pod: bool,
+              pin: bool, for_smoke: bool, dev: torch.device) -> CellProgram:
     molecular = arch_name.startswith(("dimenet", "nequip"))
     n, e, f, g = _graph_shapes_for_cell(cell)
     if hasattr(cfg, "d_in") and cfg.d_in != f:
         cfg = dataclasses.replace(cfg, d_in=f)  # shape dictates input width
+    flat = _flat(multi_pod)
+    if pin and hasattr(cfg, "shard_axes"):
+        upd = {"shard_axes": flat}
+        if hasattr(cfg, "msg_dtype"):
+            upd["msg_dtype"] = torch.bfloat16
+        cfg = dataclasses.replace(cfg, **upd)
     init, model_cls, loss, label_kind = _gnn_fwd_and_loss(arch_name, cfg)
     p_abs = model_cls(cfg, META)
+    gspec = GraphBatch(
+        node_feat=P(flat, None), senders=P(flat), receivers=P(flat),
+        edge_mask=P(flat), node_mask=P(flat), graph_id=P(flat),
+        n_graphs=g,
+        positions=P(flat, None) if molecular else None,
+        species=P(flat) if molecular else None,
+    )
+    p_spec = param_tree(p_abs, lambda *_: P())
+    opt_spec = shard_rules.opt_state_specs(p_spec)
     is_dimenet = arch_name.startswith("dimenet")
     t_cap = 2 * e if is_dimenet else 0
 
@@ -298,10 +353,13 @@ def _gnn_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
     abstract = [p_abs, adamw_init(p_abs),
                 _abstract_graph_batch(n, e, f, g, molecular),
                 torch.empty(lab_shape, dtype=lab_dt, device=META)]
+    lab_spec = P(flat) if label_kind == "node_labels" else P()
+    in_specs = [p_spec, opt_spec, gspec, lab_spec]
     if is_dimenet:
         abstract += [torch.empty((t_cap,), dtype=torch.int64, device=META),
                      torch.empty((t_cap,), dtype=torch.int64, device=META),
                      torch.empty((t_cap,), dtype=torch.bool, device=META)]
+        in_specs += [P(flat), P(flat), P(flat)]
 
     def concrete(seed: int = 0):
         params = init(cfg, _generator(seed, dev), device=dev)
@@ -317,7 +375,8 @@ def _gnn_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
 
     return CellProgram(
         name=f"{arch_name}:{cell.name}", fn=step,
-        abstract_inputs=tuple(abstract), in_specs=None, out_specs=None,
+        abstract_inputs=tuple(abstract), in_specs=tuple(in_specs),
+        out_specs=(p_spec, opt_spec, _METRICS_SPEC),
         concrete_inputs=concrete, donate=(0, 1),
     )
 
@@ -325,9 +384,17 @@ def _gnn_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
 # ---------------------------------------------------------------------------
 # recsys cells
 # ---------------------------------------------------------------------------
-def _recsys_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
-                 dev: torch.device) -> CellProgram:
+def _recsys_cell(arch_name: str, cfg, cell: ShapeCell, multi_pod: bool,
+                 pin: bool, for_smoke: bool, dev: torch.device
+                 ) -> CellProgram:
     p_abs = rec_mod.DeepFM(cfg, device=META)
+    flat = _flat(multi_pod)
+    p_spec = {
+        "embed": P(flat, None),
+        "w1": P(flat),
+        "bias": P(),
+        "mlp": param_tree(p_abs.mlp, lambda *_: P()),
+    }
     b = cell.params["batch"]
     ids_abs = torch.empty((b, cfg.n_sparse), dtype=torch.int32, device=META)
 
@@ -345,6 +412,9 @@ def _recsys_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
 
         abstract = (p_abs, adamw_init(p_abs), ids_abs,
                     torch.empty((b,), dtype=torch.float32, device=META))
+        opt_spec = shard_rules.opt_state_specs(p_spec)
+        in_specs = (p_spec, opt_spec, P(flat, None), P(flat))
+        out_specs = (p_spec, opt_spec, _METRICS_SPEC)
         donate = (0, 1)
 
         def concrete(seed: int = 0):
@@ -361,6 +431,8 @@ def _recsys_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
             return rec_mod.deepfm_forward(cfg, params, sparse)
 
         abstract = (p_abs, ids_abs)
+        in_specs = (p_spec, P(flat, None))
+        out_specs = P(flat)
         donate = ()
 
         def concrete(seed: int = 0):
@@ -376,6 +448,8 @@ def _recsys_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
         abstract = (p_abs, ids_abs,
                     torch.empty((nc, cfg.embed_dim), dtype=torch.float32,
                                 device=META))
+        in_specs = (p_spec, P(None, None), P(flat, None))
+        out_specs = P(None, flat)
         donate = ()
 
         def concrete(seed: int = 0):
@@ -388,7 +462,7 @@ def _recsys_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
         raise ValueError(cell.kind)
     return CellProgram(
         name=f"{arch_name}:{cell.name}", fn=step,
-        abstract_inputs=abstract, in_specs=None, out_specs=None,
+        abstract_inputs=abstract, in_specs=in_specs, out_specs=out_specs,
         concrete_inputs=concrete, donate=donate,
     )
 
@@ -438,8 +512,9 @@ def coremaint_batch(cfg, cell: ShapeCell, m) -> Tuple[Any, ...]:
             put(ok), m.n_edges)
 
 
-def _coremaint_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
-                    dev: torch.device) -> CellProgram:
+def _coremaint_cell(arch_name: str, cfg, cell: ShapeCell, multi_pod: bool,
+                    pin: bool, for_smoke: bool, dev: torch.device
+                    ) -> CellProgram:
     from ..core.insert import insert_batch
     from ..core.remove import remove_batch
 
@@ -453,12 +528,14 @@ def _coremaint_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
              meta((cap,), torch.bool), meta((n,), torch.int32),
              meta((n,), torch.int64))
 
+    flat = _flat(multi_pod)
     if cell.kind == "coremaint_remove":
         def step(src, dst, valid, core, label, slots):
             return remove_batch(src, dst, valid, core, label, slots, n,
                                 n_levels)
 
         abstract = table + (meta((b,), torch.int32),)
+        in_specs = (P(flat), P(flat), P(flat), P(), P(), P())
     else:
         def step(src, dst, valid, core, label, ns, nd, ok, ne):
             return insert_batch(src, dst, valid, core, label, ns, nd, ok,
@@ -467,13 +544,14 @@ def _coremaint_cell(arch_name: str, cfg, cell: ShapeCell, for_smoke: bool,
         abstract = table + (meta((b,), torch.int32),
                             meta((b,), torch.int32),
                             meta((b,), torch.bool), meta((), torch.int32))
+        in_specs = (P(flat), P(flat), P(flat), P(), P(), P(), P(), P(), P())
 
     def concrete(seed: int = 0):
         return coremaint_inputs(cfg, cell, dev)
 
     return CellProgram(
         name=f"{arch_name}:{cell.name}", fn=step,
-        abstract_inputs=abstract, in_specs=None, out_specs=None,
+        abstract_inputs=abstract, in_specs=in_specs, out_specs=None,
         concrete_inputs=concrete,
     )
 
@@ -490,10 +568,11 @@ def build_cell(
     device=None,
 ) -> CellProgram:
     """The cell program of ``arch_name`` at ``shape_name`` (``smoke``:
-    the reduced config and shapes, with ``concrete_inputs``); inputs are
-    made on ``device`` (``None``: the card; raises without one)."""
-    if multi_pod:
-        raise NotImplementedError(f"build_cell(multi_pod=True): {NOT_PORTED}")
+    the reduced config and shapes) with the specs of the 16x16 mesh, or
+    of the 2x16x16 one with ``multi_pod``; inputs are made on ``device``
+    (``None``: the card; raises without one). Full cells take the
+    reference's pins unless ``REPRO_NO_PIN`` is set; smoke cells never."""
+    pin = not smoke and not os.environ.get("REPRO_NO_PIN")
     dev = resolve_device(device)
     mod = get_arch(arch_name)
     cfg = mod.smoke() if smoke else mod.full()
@@ -505,7 +584,7 @@ def build_cell(
              "coremaint": _coremaint_cell}.get(mod.FAMILY)
     if build is None:
         raise ValueError(mod.FAMILY)
-    return build(arch_name, cfg, cell, smoke, dev)
+    return build(arch_name, cfg, cell, multi_pod, pin, smoke, dev)
 
 
 def cell_names(arch_name: str, smoke: bool = False):

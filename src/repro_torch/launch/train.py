@@ -12,8 +12,10 @@ the straggler monitor. ``--smoke`` takes the reduced config and forces
 float32, as the reference does; parameters are drawn from a
 ``torch.Generator`` seeded 0. The loss runs the plain attention
 (``kernel_backend="torch"``): the reference trains through XLA and the
-attention kernel is forward-only. The reference's multi-host sharding
-and cross-pod gradient compression come with ROADMAP Queue 1 E.
+attention kernel is forward-only. The reference's docstring names
+sharded parameters and ``--compress-pod-grads``, but its code builds no
+mesh and wires neither, so neither is carried here; sharded training
+steps are ``launch/steps.py``'s cells on a mesh.
 """
 from __future__ import annotations
 

@@ -29,13 +29,29 @@ graph); the training loop (``train/loop.py``) makes them trainable with
 differentiable with respect to them (``launch/steps.py``'s GNN cells).
 ``nequip_energy_forces`` differentiates the positions alone.
 
-``shard_axes`` stays in every config, but only ``None`` is accepted: the
-reference's ``shard_map`` paths (``_sharded_gather``,
-``_sharded_seg_sum``, ``_pin``) come with ``parallel/sharding.py``
-(ROADMAP Queue 1 E).
+Sharding. A batch placed as DTensors (``parallel.sharding.place`` by
+``launch/steps.py``'s specs: nodes, edges and triplets split over the
+flattened mesh, parameters replicated) makes the forwards SPMD; a plain
+tensor beside a DTensor is taken as replicated (``implicit_replication``).
+``shard_axes`` (the pod cells' pin) selects the reference's explicit
+regions, each a ``local_map`` over the flattened axes' one process group
+(``DeviceMesh._flatten``: rank ``data * |model| + model`` on the 2-D
+mesh, the order DTensor splits one dimension over several mesh
+dimensions in): ``_sharded_gather`` all-gathers the table (tiled) and
+gathers its rows, ``_sharded_seg_sum`` scatters into a full ``n``-row
+buffer and reduce-scatters it, both with the autograd collectives, so
+the backward reduce-scatters the gathered table's gradient and
+all-gathers the scatter's, as the reference's transposes do; ``_pin``
+redistributes the leading dimension over the axes. The other gathers
+and segment reductions of a sharded batch (``_rows``, ``_seg_sum``,
+``_seg_reduce_clamped``, where the reference leaves the layout to
+GSPMD) replicate their inputs and compute whole on every rank; a
+gather's table gradient then comes back as a partial sum. With plain
+tensors every path is the unsharded one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
@@ -46,17 +62,185 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.sharding import (P, is_dtensor, redistribute, replicated,
+                                 replicated_region)
 
 Tensor = torch.Tensor
 
 
-def _check_unsharded(cfg) -> None:
-    """Each GNN config's ``__post_init__``: only ``shard_axes=None``."""
-    if cfg.shard_axes is not None:
-        raise ValueError(
-            f"{type(cfg).__name__}(shard_axes={cfg.shard_axes!r}): only "
-            "None is ported; the sharded GNN paths come with "
-            "parallel/sharding.py (ROADMAP Queue 1 E)")
+# ---------------------------------------------------------------------------
+# sharded regions
+# ---------------------------------------------------------------------------
+def _axes_tuple(axes) -> Tuple[str, ...]:
+    """``shard_axes`` (a name, or a tuple of names and tuples) flattened."""
+    return tuple(a for ax in ((axes,) if isinstance(axes, str) else axes)
+                 for a in ((ax,) if isinstance(ax, str) else ax))
+
+
+def _flat_mesh(mesh, axes):
+    """The 1-D mesh over ``axes`` of ``mesh`` flattened (one process
+    group: its ranks in the order DTensor splits a dimension over those
+    mesh dimensions)."""
+    names = _axes_tuple(axes)
+    sub = mesh if names == tuple(mesh.mesh_dim_names) else mesh[names]
+    return sub if sub.ndim == 1 else sub._flatten()
+
+
+def _lead(mesh, axes) -> list:
+    """Placements splitting dimension 0 over ``axes``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = set(_axes_tuple(axes))
+    return [Shard(0) if n in names else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def _all_replicate(mesh) -> list:
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate()] * mesh.ndim
+
+
+def _mesh_of(*xs):
+    return next((x.device_mesh for x in xs if is_dtensor(x)), None)
+
+
+def _whole(fn, *xs):
+    """``fn(*xs)`` computed whole on every rank when one of ``xs`` is a
+    DTensor (each replicated first; a replicated result), else as it
+    is."""
+    mesh = _mesh_of(*xs)
+    if mesh is None:
+        return fn(*xs)
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = _all_replicate(mesh)
+    xs = [replicated(x, mesh) for x in xs]
+    return local_map(fn, out_placements=rep,
+                     in_placements=tuple(rep for _ in xs),
+                     device_mesh=mesh, redistribute_inputs=True)(*xs)
+
+
+def _rows(table: Tensor, idx: Tensor) -> Tensor:
+    """``table[idx]`` (rows). Sharded: the table replicated, each rank
+    gathering the rows of its own ``idx`` shard (the result split as
+    ``idx`` is); the table's gradient is each rank's partial sum."""
+    mesh = _mesh_of(table, idx)
+    if mesh is None:
+        return torch.index_select(table, 0, idx)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    table, idx = replicated(table, mesh), replicated(idx, mesh)
+    rep = _all_replicate(mesh)
+    return local_map(
+        lambda t, i: torch.index_select(t, 0, i),
+        out_placements=list(idx.placements),
+        in_placements=(rep, list(idx.placements)),
+        in_grad_placements=([Partial()] * mesh.ndim, list(idx.placements)),
+        device_mesh=mesh, redistribute_inputs=True)(table, idx)
+
+
+def _per_row(fn, n_out: int, *rows, params=()):
+    """``fn(*rows, *params)`` computed on each rank's rows: ``rows`` share
+    their leading (edge or triplet) dimension, split as the first
+    DTensor among them is (the others redistributed to that split), and
+    ``fn``'s ``n_out`` outputs are split the same way; ``params``
+    (weights) are replicated, their gradients each rank's partial sums.
+    A region of local tensors (``local_map``), so DTensor propagates no
+    op inside it. On plain tensors, ``fn`` as it is."""
+    mesh = _mesh_of(*rows, *params)
+    if mesh is None:
+        return fn(*rows, *params)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    lead = next(x for x in rows if is_dtensor(x))
+    pl = [p if p.is_shard(0) else Replicate() for p in lead.placements]
+    grad = [Partial() if p.is_shard(0) else Replicate() for p in pl]
+    rep = _all_replicate(mesh)
+    ins = [replicated(x, mesh) for x in rows + params]
+    out = pl if n_out == 1 else tuple(pl for _ in range(n_out))
+    return local_map(fn, out_placements=out,
+                     in_placements=(pl,) * len(rows) + (rep,) * len(params),
+                     in_grad_placements=(pl,) * len(rows)
+                     + (grad,) * len(params),
+                     device_mesh=mesh, redistribute_inputs=True)(*ins)
+
+
+def _autograd_collective(name: str):
+    """``_functional_collectives``' autograd ``all_gather`` /
+    ``reduce_scatter`` (``*_single_autograd`` where torch has it, else
+    ``*_tensor_autograd``)."""
+    import torch.distributed._functional_collectives as fc
+
+    return getattr(fc, f"{name}_single_autograd", None) or getattr(
+        fc, f"{name}_tensor_autograd")
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient (the
+    autograd collectives' backward takes only contiguous ones; a slice of
+    a ``cat``'s gradient is not)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _check_split(n: int, what: str, flat) -> None:
+    if n % flat.size() != 0:
+        raise ValueError(f"{what}: {n} rows do not split over the "
+                         f"{flat.size()} ranks of the sharded axes (the "
+                         "cells pad to multiples of 512)")
+
+
+def _sharded_gather(vals: Tensor, idx: Tensor, axes) -> Tensor:
+    """Row gather from a table split over ``axes``: the table
+    all-gathered once (tiled) over the axes' group, then each rank
+    gathers the rows of its ``idx`` shard; the backward reduce-scatters
+    the table's gradient (the reference's transpose). ``vals[idx]``
+    when ``axes`` is None or the tensors are plain."""
+    mesh = _mesh_of(vals, idx)
+    if axes is None or mesh is None:
+        return _rows(vals, idx)
+    from torch.distributed.tensor.experimental import local_map
+
+    flat = _flat_mesh(mesh, axes)
+    _check_split(vals.shape[0], "_sharded_gather's table", flat)
+    _check_split(idx.shape[0], "_sharded_gather's index", flat)
+    group, all_gather = flat.get_group(), _autograd_collective("all_gather")
+
+    def f(v, i):
+        full = _ContiguousGrad.apply(all_gather(v.contiguous(), 0, group))
+        return torch.index_select(full, 0, i)
+
+    pl = _lead(mesh, axes)
+    vals, idx = replicated(vals, mesh), replicated(idx, mesh)
+    return local_map(f, out_placements=pl, in_placements=(pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(vals, idx)
+
+
+def _region(*xs):
+    """The context a forward over ``xs`` runs in: ``replicated_region``
+    when one is a DTensor (plain tensors beside them replicated), else
+    none."""
+    if _mesh_of(*xs) is not None:
+        return replicated_region()
+    return contextlib.nullcontext()
+
+
+def _pin(x, axes):
+    """The leading (edge/node/triplet) dimension of DTensor ``x`` split
+    over ``axes`` (the reference's ``with_sharding_constraint``); a
+    no-op when ``axes`` is None or ``x`` is plain."""
+    if axes is None:
+        return x
+    return redistribute(x, P(axes, *([None] * (x.dim() - 1))))
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +303,37 @@ class GraphBatch:
 
 
 def _seg_sum(x: Tensor, ids: Tensor, n: int) -> Tensor:
+    if _mesh_of(x, ids) is not None:
+        return _whole(lambda a, i: _seg_sum(a, i, n), x, ids)
     return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, ids, x)
+
+
+def _sharded_seg_sum(x: Tensor, ids: Tensor, n: int, axes) -> Tensor:
+    """``segment_sum`` with its output split over ``axes``: each rank
+    scatters its ``x`` / ``ids`` shard into a full ``n``-row buffer,
+    then one reduce-scatter over the axes' group (the backward
+    all-gathers). Needs ``n`` divisible by the group's size (the cells
+    pad to 512). ``_seg_sum`` when ``axes`` is None or the tensors are
+    plain."""
+    mesh = _mesh_of(x, ids)
+    if axes is None or mesh is None:
+        return _seg_sum(x, ids, n)
+    from torch.distributed.tensor.experimental import local_map
+
+    flat = _flat_mesh(mesh, axes)
+    _check_split(n, "_sharded_seg_sum's output", flat)
+    group = flat.get_group()
+    reduce_scatter = _autograd_collective("reduce_scatter")
+
+    def f(xs, is_):
+        buf = xs.new_zeros((n,) + tuple(xs.shape[1:])).index_add_(0, is_,
+                                                                   xs)
+        return _ContiguousGrad.apply(reduce_scatter(buf, "sum", 0, group))
+
+    pl = _lead(mesh, axes)
+    x, ids = replicated(x, mesh), replicated(ids, mesh)
+    return local_map(f, out_placements=pl, in_placements=(pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(x, ids)
 
 
 def _seg_reduce_clamped(x: Tensor, ids: Tensor, n: int, fill: float,
@@ -128,6 +342,9 @@ def _seg_reduce_clamped(x: Tensor, ids: Tensor, n: int, fill: float,
     ``min(segment_min(x), fill)`` (``"amin"``): an empty segment gives
     ``fill``. A scatter over the ids broadcast along the feature axes (a
     view), which the card runs in half the time of ``index_reduce_``."""
+    if _mesh_of(x, ids) is not None:
+        return _whole(lambda a, i: _seg_reduce_clamped(a, i, n, fill,
+                                                       reduce), x, ids)
     out = x.new_full((n,) + tuple(x.shape[1:]), fill)
     idx = ids.view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
     return out.scatter_reduce_(0, idx, x, reduce, include_self=True)
@@ -231,8 +448,6 @@ class PNAConfig:
     delta: float = 2.5  # mean log-degree normalizer (dataset statistic)
     shard_axes: Any = None
 
-    def __post_init__(self):
-        _check_unsharded(self)
 
 
 class _PNALayer(nn.Module):
@@ -287,7 +502,7 @@ def _refill(x: Tensor, dead: Tensor, value: float) -> Tensor:
 
 
 def _pna_layer(lyr, h: Tensor, batch: GraphBatch, deg: Tensor,
-               scalers: Tuple[Tensor, Tensor]) -> Tensor:
+               scalers: Tuple[Tensor, Tensor], axes=None) -> Tensor:
     """One PNA layer. Serving holds at most two ``[E, d_hidden]``
     tensors live at once (the masked messages, overwritten in place by
     their max and min fills, and ``msg * msg``), and none of the layer's
@@ -296,10 +511,10 @@ def _pna_layer(lyr, h: Tensor, batch: GraphBatch, deg: Tensor,
     n = h.shape[0]
     recv = batch.receivers
     dead = ~batch.edge_mask[:, None]
-    msg = torch.index_select(_mlp_apply(lyr.pre, h), 0, batch.senders)
+    msg = _sharded_gather(_mlp_apply(lyr.pre, h), batch.senders, axes)
     msg.masked_fill_(dead, 0.0)
-    mean = _seg_sum(msg, recv, n) / deg[:, None]
-    sq = _seg_sum(msg * msg, recv, n) / deg[:, None]
+    mean = _sharded_seg_sum(msg, recv, n, axes) / deg[:, None]
+    sq = _sharded_seg_sum(msg * msg, recv, n, axes) / deg[:, None]
     mx = _seg_reduce_clamped(_refill(msg, dead, -1e30), recv, n, -1e30,
                              "amax")
     mn = _seg_reduce_clamped(_refill(msg, dead, 1e30), recv, n, 1e30,
@@ -319,16 +534,17 @@ def _pna_layer(lyr, h: Tensor, batch: GraphBatch, deg: Tensor,
 
 def pna_forward(cfg: PNAConfig, params, batch: GraphBatch) -> Tensor:
     """Node logits ``[N, n_classes]``."""
-    n = batch.node_feat.shape[0]
-    deg = _seg_sum(batch.edge_mask.to(torch.float32), batch.receivers,
-                   n) + 1e-6
-    log_deg = torch.log(deg + 1.0)
-    amp = (log_deg / cfg.delta)[:, None]
-    att = (cfg.delta / torch.clamp(log_deg, min=1e-6))[:, None]
-    h = batch.node_feat
-    for lyr in params.layers:
-        h = _pna_layer(lyr, h, batch, deg, (amp, att))
-    return _mlp_apply(params.readout, h)  # node logits
+    with _region(batch.node_feat):
+        n = batch.node_feat.shape[0]
+        deg = _seg_sum(batch.edge_mask.to(torch.float32), batch.receivers,
+                       n) + 1e-6
+        log_deg = torch.log(deg + 1.0)
+        amp = (log_deg / cfg.delta)[:, None]
+        att = (cfg.delta / torch.clamp(log_deg, min=1e-6))[:, None]
+        h = batch.node_feat
+        for lyr in params.layers:
+            h = _pna_layer(lyr, h, batch, deg, (amp, att), cfg.shard_axes)
+        return _mlp_apply(params.readout, h)  # node logits
 
 
 def pna_conditioned_rows(batch: GraphBatch, n_layers: int) -> Tensor:
@@ -360,8 +576,6 @@ class GINConfig:
     n_classes: int = 2
     shard_axes: Any = None
 
-    def __post_init__(self):
-        _check_unsharded(self)
 
 
 class _GINLayer(nn.Module):
@@ -407,20 +621,24 @@ def gin_params_from_reference(params: Mapping[str, Any], cfg: GINConfig,
 
 
 def gin_forward(cfg: GINConfig, params, batch: GraphBatch) -> Tensor:
-    n = batch.node_feat.shape[0]
-    h = batch.node_feat
-    dead = ~batch.edge_mask[:, None]
-    pooled = []
-    for lyr in params.layers:
-        msg = torch.index_select(h, 0, batch.senders).masked_fill_(dead, 0.0)
-        agg = _seg_sum(msg, batch.receivers, n)
-        del msg
-        h = _mlp_apply(lyr.mlp, (1.0 + lyr.eps) * h + agg, final_act=True)
-        h = h * batch.node_mask[:, None]
-        # graph sum-pool per layer (GIN readout)
-        pooled.append(_seg_sum(h, batch.graph_id, batch.n_graphs))
-    z = torch.cat(pooled, dim=-1)
-    return _mlp_apply(params.readout, z)  # [G, n_classes]
+    with _region(batch.node_feat):
+        n = batch.node_feat.shape[0]
+        h = batch.node_feat
+        dead = ~batch.edge_mask[:, None]
+        axes = cfg.shard_axes
+        pooled = []
+        for lyr in params.layers:
+            msg = _sharded_gather(h, batch.senders, axes).masked_fill_(
+                dead, 0.0)
+            agg = _sharded_seg_sum(msg, batch.receivers, n, axes)
+            del msg
+            h = _mlp_apply(lyr.mlp, (1.0 + lyr.eps) * h + agg,
+                           final_act=True)
+            h = h * batch.node_mask[:, None]
+            # graph sum-pool per layer (GIN readout)
+            pooled.append(_seg_sum(h, batch.graph_id, batch.n_graphs))
+        z = torch.cat(pooled, dim=-1)
+        return _mlp_apply(params.readout, z)  # [G, n_classes]
 
 
 # ---------------------------------------------------------------------------
@@ -439,8 +657,6 @@ class DimeNetConfig:
     shard_axes: Any = None
     msg_dtype: Any = torch.float32  # bfloat16: blocks computed in bf16
 
-    def __post_init__(self):
-        _check_unsharded(self)
 
 
 def _bessel_basis(d: Tensor, n_radial: int, cutoff: float) -> Tensor:
@@ -530,58 +746,73 @@ def dimenet_forward(
     triplet_mask: Tensor,  # [T] bool
 ) -> Tensor:
     """Returns per-graph energy [G]."""
+    with _region(batch.positions, triplet_kj):
+        return _dimenet_forward(cfg, params, batch, triplet_kj, triplet_ji,
+                                triplet_mask)
+
+
+def _dimenet_forward(cfg, params, batch, triplet_kj, triplet_ji,
+                     triplet_mask):
     dt = cfg.msg_dtype
     cast = None if dt == torch.float32 else dt
+    axes = cfg.shard_axes
     emask = batch.edge_mask[:, None]
     pos = batch.positions
-    sp = params.species_embed[batch.species]
-    vec = pos[batch.senders] - pos[batch.receivers]
+    sp = _rows(params.species_embed, batch.species)
+    vec = _rows(pos, batch.senders) - _rows(pos, batch.receivers)
     dist = torch.linalg.norm(vec + 1e-12, dim=-1)
     rbf = _bessel_basis(dist, cfg.n_radial, cfg.cutoff)  # [E, R]
     # initial edge message from endpoint species + rbf
     m = _mlp_apply(
         params.msg_embed,
-        torch.cat([sp[batch.senders], sp[batch.receivers],
+        torch.cat([_rows(sp, batch.senders), _rows(sp, batch.receivers),
                    _mlp_apply(params.rbf_embed, rbf)], dim=-1),
         final_act=True,
     )
-    m = (m * emask).to(dt)
+    m = _pin((m * emask).to(dt), axes)
     n_edges = m.shape[0]
 
     # triplet angles: edge kj = (k->j), edge ji = (j->i): angle at j
-    v1 = -vec[triplet_kj]  # j->k
-    v2 = vec[triplet_ji]   # j->i  (sender j, receiver i: vec = pos_j - pos_i)
-    cos_a = torch.sum(v1 * v2, dim=-1) / (
-        torch.linalg.norm(v1 + 1e-12, dim=-1)
-        * torch.linalg.norm(v2 + 1e-12, dim=-1)
-        + 1e-9
-    )
-    ang = _legendre_cos(torch.clamp(cos_a, -1.0, 1.0), cfg.n_spherical)
-    sbf = (
-        ang[:, :, None] * _bessel_basis(
-            dist[triplet_kj], cfg.n_radial, cfg.cutoff)[:, None, :]
-    ).reshape(ang.shape[0], -1).to(dt)  # [T, S*R]
+    def spherical(v1, v2, d_kj):
+        cos_a = torch.sum(v1 * v2, dim=-1) / (
+            torch.linalg.norm(v1 + 1e-12, dim=-1)
+            * torch.linalg.norm(v2 + 1e-12, dim=-1)
+            + 1e-9
+        )
+        ang = _legendre_cos(torch.clamp(cos_a, -1.0, 1.0), cfg.n_spherical)
+        return (ang[:, :, None] * _bessel_basis(
+            d_kj, cfg.n_radial, cfg.cutoff)[:, None, :]
+        ).reshape(ang.shape[0], -1).to(dt)  # [T, S*R]
+
+    sbf = _pin(_per_row(spherical, 1,
+                        -_rows(vec, triplet_kj),  # j->k
+                        _rows(vec, triplet_ji),   # j->i (pos_j - pos_i)
+                        _rows(dist, triplet_kj)), axes)
     tmask = triplet_mask[:, None]
 
     for blk in params.blocks:
         # under msg_dtype the whole block runs in it (every weight cast)
         bil = blk.bilinear if cast is None else blk.bilinear.to(cast)
         g_rbf = _mlp_apply(blk.w_rbf, rbf.to(dt), dtype=cast)  # [E, D]
-        g_sbf = _mlp_apply(blk.w_sbf, sbf, dtype=cast)         # [T, B]
-        m_kj = _mlp_apply(blk.msg_mlp, m, final_act=True,
-                          dtype=cast)[triplet_kj]
+        g_sbf = _pin(_mlp_apply(blk.w_sbf, sbf, dtype=cast), axes)  # [T, B]
+        m_kj = _sharded_gather(
+            _mlp_apply(blk.msg_mlp, m, final_act=True, dtype=cast),
+            triplet_kj, axes)
         # bilinear: combine angular basis with incoming messages
-        inter = torch.einsum("tb,bdf,td->tf", g_sbf, bil, m_kj)
-        inter = inter * tmask
-        agg = _seg_sum(inter.to(dt), triplet_ji, n_edges)
+        inter = _per_row(lambda g, mk, b: torch.einsum("tb,bdf,td->tf", g,
+                                                       b, mk),
+                         1, g_sbf, m_kj, params=(bil,))
+        inter = _pin(inter * tmask, axes)
+        agg = _sharded_seg_sum(inter.to(dt), triplet_ji, n_edges, axes)
         upd = _mlp_apply(blk.upd_mlp,
                          torch.cat([m * g_rbf, agg], dim=-1).to(dt),
                          final_act=True, dtype=cast)
         m = m + upd.to(dt)
-        m = m * emask
+        m = _pin(m * emask, axes)
 
     n = batch.node_feat.shape[0]
-    atom = _seg_sum(m.to(torch.float32), batch.receivers, n)  # edge->atom
+    atom = _sharded_seg_sum(m.to(torch.float32), batch.receivers, n,
+                            axes)  # edge->atom
     e_atom = _mlp_apply(params.out, atom)[:, 0] * batch.node_mask
     return _seg_sum(e_atom, batch.graph_id, batch.n_graphs)
 
@@ -644,8 +875,6 @@ class NequIPConfig:
     n_species: int = 16
     shard_axes: Any = None
 
-    def __post_init__(self):
-        _check_unsharded(self)
 
 
 _SQRT3 = math.sqrt(3.0)
@@ -706,6 +935,35 @@ def _mat_to_vec5(m: Tensor) -> Tensor:
 _N_PATHS = 11  # tensor-product paths of nequip_energy
 
 
+def _tensor_products(w, s0, s1, s2, y1, y2):
+    """NequIP's messages an edge: the 11 tensor-product paths (sender
+    feature x edge harmonic -> receiver l), weighted by ``w`` ``[E, 11,
+    C]`` and summed by output order: ``(l=0 [E, C], l=1 [E, C, 3], l=2
+    [E, C, 5])``."""
+    eye = torch.eye(3, dtype=s1.dtype, device=s1.device)
+    y1e = y1[:, None, :]                                         # [E,1,3]
+    p0 = w[:, 0] * s0                                            # 0x0->0
+    p1 = (w[:, 1] * s0)[..., None] * y1e                         # 0x1->1
+    p2 = w[:, 2, :, None] * s0[..., None] * y2[:, None, :]       # 0x2->2
+    p3 = w[:, 3, :, None] * s1                                   # 1x0->1
+    p4 = w[:, 4] * torch.einsum("ecd,ed->ec", s1, y1)            # 1x1->0
+    p5 = w[:, 5, :, None] * torch.linalg.cross(
+        s1, y1e.expand_as(s1), dim=-1)                           # 1x1->1
+    outer = (s1[..., :, None] * y1[:, None, None, :]
+             + s1[..., None, :] * y1[:, None, :, None]) * 0.5
+    tr = (outer[..., 0, 0] + outer[..., 1, 1] + outer[..., 2, 2]) / 3.0
+    outer = outer - tr[..., None, None] * eye
+    p6 = w[:, 6, :, None] * _mat_to_vec5(outer)                  # 1x1->2
+    m2 = _vec5_to_mat(s2)
+    p7 = w[:, 7, :, None] * torch.einsum("ecij,ej->eci", m2, y1)  # 2x1->1
+    p8 = w[:, 8, :, None] * s2                                   # 2x0->2
+    y2b = _vec5_to_mat(y2)[:, None].expand_as(m2)
+    p9 = w[:, 9] * torch.einsum("ecij,ecij->ec", m2, y2b)        # 2x2->0
+    p10 = w[:, 10, :, None] * _mat_to_vec5(
+        torch.matmul(m2, y2b) + torch.matmul(y2b, m2)) * 0.5     # 2x2->2*
+    return (p0 + p4 + p9, p1 + p3 + p5 + p7, p2 + p6 + p8 + p10)
+
+
 class _NequIPLayer(nn.Module):
     def __init__(self, cfg: NequIPConfig, device):
         super().__init__()
@@ -764,54 +1022,47 @@ def nequip_params_from_reference(params: Mapping[str, Any],
 def nequip_energy(cfg: NequIPConfig, params, positions: Tensor,
                   batch: GraphBatch) -> Tensor:
     """Per-graph energy. ``positions`` is separated out for the forces."""
+    with _region(positions, batch.senders):
+        return _nequip_energy(cfg, params, positions, batch)
+
+
+def _nequip_energy(cfg, params, positions, batch):
     n = batch.node_feat.shape[0]
     c = cfg.d_hidden
+    axes = cfg.shard_axes
     snd, rcv = batch.senders, batch.receivers
-    h0 = params.species_embed[batch.species]  # [N, C] scalars
-    h1 = positions.new_zeros((n, c, 3))
-    h2 = positions.new_zeros((n, c, 5))
+    h0 = _rows(params.species_embed, batch.species)  # [N, C] scalars
+    zeros = lambda *shape: torch.zeros(  # noqa: E731
+        shape, dtype=positions.dtype, device=positions.device)
+    h1, h2 = zeros(n, c, 3), zeros(n, c, 5)
+    if is_dtensor(positions):
+        h1 = replicated(h1, positions.device_mesh)
+        h2 = replicated(h2, positions.device_mesh)
 
-    vec = positions[snd] - positions[rcv]
-    dist = torch.linalg.norm(vec + 1e-9, dim=-1)
-    unit = vec / (dist[..., None] + 1e-9)
-    _, y1, y2 = _sph_harmonics(unit)
-    rbf = _bessel_basis(dist, cfg.n_rbf, cfg.cutoff)  # [E, R]
-    # smooth cutoff envelope
-    env = torch.where(dist < cfg.cutoff,
-                      0.5 * (torch.cos(math.pi * dist / cfg.cutoff) + 1.0),
-                      0.0)
-    emask = batch.edge_mask * env
-    eye = torch.eye(3, dtype=positions.dtype, device=positions.device)
-    y1e = y1[:, None, :]                      # [E, 1, 3]
-    y2m = _vec5_to_mat(y2)[:, None]           # [E, 1, 3, 3]
+    def geometry(vec, edge_mask):
+        dist = torch.linalg.norm(vec + 1e-9, dim=-1)
+        unit = vec / (dist[..., None] + 1e-9)
+        _, y1, y2 = _sph_harmonics(unit)
+        rbf = _bessel_basis(dist, cfg.n_rbf, cfg.cutoff)  # [E, R]
+        # smooth cutoff envelope
+        env = torch.where(dist < cfg.cutoff,
+                          0.5 * (torch.cos(math.pi * dist / cfg.cutoff)
+                                 + 1.0), 0.0)
+        return y1, y2, rbf, edge_mask * env
+
+    y1, y2, rbf, emask = _per_row(
+        geometry, 4, _rows(positions, snd) - _rows(positions, rcv),
+        batch.edge_mask)
 
     for lyr in params.layers:
         w = _mlp_apply(lyr.radial, rbf)  # [E, 11C]
         w = (w * emask[:, None]).reshape(-1, _N_PATHS, c)
-        s0, s1, s2 = h0[snd], h1[snd], h2[snd]
-        # tensor-product paths (sender feature x edge harmonic -> receiver l)
-        p0 = w[:, 0] * s0                                          # 0x0->0
-        p1 = (w[:, 1] * s0)[..., None] * y1e                       # 0x1->1
-        p2 = w[:, 2, :, None] * s0[..., None] * y2[:, None, :]     # 0x2->2
-        p3 = w[:, 3, :, None] * s1                                 # 1x0->1
-        p4 = w[:, 4] * torch.einsum("ecd,ed->ec", s1, y1)          # 1x1->0
-        p5 = w[:, 5, :, None] * torch.linalg.cross(
-            s1, y1e.expand_as(s1), dim=-1)                         # 1x1->1
-        outer = (s1[..., :, None] * y1[:, None, None, :]
-                 + s1[..., None, :] * y1[:, None, :, None]) * 0.5
-        tr = (outer[..., 0, 0] + outer[..., 1, 1] + outer[..., 2, 2]) / 3.0
-        outer = outer - tr[..., None, None] * eye
-        p6 = w[:, 6, :, None] * _mat_to_vec5(outer)                # 1x1->2
-        m2 = _vec5_to_mat(s2)
-        p7 = w[:, 7, :, None] * torch.einsum("ecij,ej->eci", m2, y1)  # 2x1->1
-        p8 = w[:, 8, :, None] * s2                                 # 2x0->2
-        y2b = y2m.expand_as(m2)
-        p9 = w[:, 9] * torch.einsum("ecij,ecij->ec", m2, y2b)      # 2x2->0
-        p10 = w[:, 10, :, None] * _mat_to_vec5(
-            torch.matmul(m2, y2b) + torch.matmul(y2b, m2)) * 0.5   # 2x2->2*
-        a0 = _seg_sum(p0 + p4 + p9, rcv, n)
-        a1 = _seg_sum(p1 + p3 + p5 + p7, rcv, n)
-        a2 = _seg_sum(p2 + p6 + p8 + p10, rcv, n)
+        s0, s1, s2 = (_sharded_gather(h, snd, axes) for h in (h0, h1, h2))
+        msg0, msg1, msg2 = _per_row(_tensor_products, 3, w, s0, s1, s2, y1,
+                                    y2)
+        a0 = _sharded_seg_sum(msg0, rcv, n, axes)
+        a1 = _sharded_seg_sum(msg1, rcv, n, axes)
+        a2 = _sharded_seg_sum(msg2, rcv, n, axes)
         # self interaction + gated nonlinearity
         h0n = h0 @ lyr.self0 + a0
         h1n = torch.einsum("ncd,ce->ned", h1 + a1, lyr.self1)

@@ -32,9 +32,11 @@ from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.sharding import is_dtensor, replicate_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,14 +184,49 @@ def _field_ids(cfg: DeepFMConfig, sparse: torch.Tensor) -> torch.Tensor:
     """Per-field hashed ids -> global rows via field offsets."""
     offsets = torch.arange(cfg.n_sparse, dtype=sparse.dtype,
                            device=sparse.device) * cfg.rows_per_field
-    return sparse + offsets[None, :]
+    return sparse + replicate_like(offsets[None, :], sparse)
 
 
 def _field_embeddings(cfg: DeepFMConfig, params, sparse: torch.Tensor):
     rows = _field_ids(cfg, sparse).reshape(-1)
-    emb = torch.index_select(params.embed, 0, rows).reshape(
+    emb = _table_rows(params.embed, rows).reshape(
         sparse.shape[0], cfg.n_sparse, cfg.embed_dim)
     return rows, emb
+
+
+def _table_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]``. On a DTensor table split by rows, each rank takes
+    the rows of its own block from the whole ``rows`` (zeros for the
+    others) and the partial results are summed onto ``rows``' own split
+    (the vocab-parallel gather; ``local_map``)."""
+    if not is_dtensor(table):
+        return torch.index_select(table, 0, rows)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    rows = replicate_like(rows, table)
+    _, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    start = offset[0]
+
+    def local(t, r):
+        r = r - start
+        ok = (r >= 0) & (r < t.shape[0])
+        got = torch.index_select(t, 0, torch.where(ok, r, 0))
+        return got * ok.reshape((-1,) + (1,) * (t.dim() - 1)).to(t.dtype)
+
+    rep = [Replicate()] * mesh.ndim
+    split = [Partial() if p.is_shard(0) else Replicate()
+             for p in table.placements]
+    out = local_map(local, out_placements=split,
+                    in_placements=(list(table.placements), rep),
+                    in_grad_placements=(list(table.placements), rep),
+                    device_mesh=mesh, redistribute_inputs=True)(table, rows)
+    return out.redistribute(mesh, [
+        q if q.is_shard(0) else Replicate() for q in rows.placements])
 
 
 def deepfm_forward(cfg: DeepFMConfig, params, sparse: torch.Tensor,
@@ -197,7 +234,7 @@ def deepfm_forward(cfg: DeepFMConfig, params, sparse: torch.Tensor,
     """sparse [B, n_sparse] int32 -> logits [B] float32."""
     b = sparse.shape[0]
     rows, emb = _field_embeddings(cfg, params, sparse)  # [B, F, E]
-    first = torch.index_select(params.w1, 0, rows).reshape(b, -1).sum(-1)
+    first = _table_rows(params.w1, rows).reshape(b, -1).sum(-1)
     if cfg.use_pallas_fm:
         from ..kernels.ops import fm_interaction_op
 

@@ -29,9 +29,11 @@ replaces the reference's Pallas ``flash_attention``: the reference's
 recurrence); it raises if the kernel cannot build or launch, and never
 gives way to the plain path. ``"torch"`` is the reference's arithmetic
 (float32 einsums, ``/ sqrt(dq)``, the -1e30 mask, softmax, cast).
-``_attend_chunked`` (``attn_chunk > 0``), MLA's absorbed attention and
-every decode step are the reference's XLA einsums, not Pallas kernels,
-and stay plain PyTorch on every backend.
+Kernel h runs its own streaming softmax, so under ``"cuda"`` it takes a
+layer's causal prefill whatever ``attn_chunk``; ``_attend_chunked``
+(``attn_chunk > 0`` on ``"torch"``), MLA's absorbed attention and every
+decode step are the reference's XLA einsums, not Pallas kernels, and
+stay plain PyTorch on every backend.
 
 The KV cache is updated in place: ``decode_step`` writes the new K/V (or
 latent) row into the caller's cache tensors with ``index_copy_`` at a
@@ -40,10 +42,26 @@ advanced; a copy of the old cache, where one is needed, is the caller's
 to take. Like the reference's ``dynamic_update_slice``, a write past the
 cache's end lands on its last slot.
 
-``batch_axes`` / ``tp_axis`` (the reference's activation-sharding pins)
-stay in the config, but only ``None`` is accepted: they come with the
-pod dry-run (ROADMAP Queue 1 E). ``scan_unroll`` changes no value and is
-kept as a field.
+Sharding. Parameters placed as DTensors (``parallel.sharding.
+shard_params`` by ``lm_param_specs``) make every entry point SPMD over
+their mesh: the activations are DTensors; the positions, masks and
+indices a backward reads are made replicated DTensors where they are
+built (``replicate_like``), and any other plain tensor beside a DTensor
+is taken as replicated (``replicated_region``); ``batch_axes`` /
+``tp_axis`` (the reference's activation-sharding pins) redistribute the
+activations where the reference's ``_pin`` constrains them (``_pin``;
+the port pins ``prefill`` as it pins ``forward``). Five blocks run as
+explicit per-rank regions (``local_map``): every projection, on each
+rank's block with the weight's FSDP split gathered (``_local_contract``:
+DTensor refuses to unflatten heads from a split ``h * k`` axis or to
+merge a split batch of 1); kernel h, on each rank's ``[B/d, H', S, D]``
+block (``_attend_kernel``); MLA's absorbed attention, on each rank's
+batch and head block (``_mla_local``); the MoE dispatch, on tokens and
+experts replicated on every rank, since its sort, capacity and scatter
+need the global token list (``_moe_ffn``; the reference leaves it to
+GSPMD). The decode cache write is a masked select over the possibly
+length-sharded cache (``_write_slot``). With plain tensors the pins are
+no-ops. ``scan_unroll`` changes no value and is kept as a field.
 
 Training. Parameters are built with ``requires_grad=False`` (serving
 takes no graph); the training loop (``train/loop.py``) makes them
@@ -59,6 +77,7 @@ kernel h, like every kernel of the port, is forward-only, so
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -70,6 +89,8 @@ from torch import nn
 
 from ..device import resolve_backend, resolve_device
 from ..kernels import flash_attention as FA
+from ..parallel.sharding import (P, is_dtensor, redistribute,
+                                 replicate_like, replicated_region)
 from .gnn import _from_reference, _generator
 
 Tensor = torch.Tensor
@@ -117,17 +138,9 @@ class LMConfig:
     dtype: Any = torch.bfloat16
     remat: str = "none"              # "none" | "full"
     scan_unroll: int = 1
-    batch_axes: Any = None           # only None (ROADMAP Queue 1 E)
-    tp_axis: Any = None              # only None (ROADMAP Queue 1 E)
+    batch_axes: Any = None           # activation-sharding pins (_pin)
+    tp_axis: Any = None
     attn_chunk: int = 0              # >0: streaming-softmax KV chunking
-
-    def __post_init__(self):
-        if self.batch_axes is not None or self.tp_axis is not None:
-            raise ValueError(
-                f"LMConfig(batch_axes={self.batch_axes!r}, "
-                f"tp_axis={self.tp_axis!r}): only None is ported; the "
-                "activation-sharding pins come with the pod dry-run "
-                "(ROADMAP Queue 1 E)")
 
     @property
     def n_params(self) -> int:
@@ -200,6 +213,25 @@ def resolve_kernel_backend(cfg: LMConfig, device,
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+def _pin(cfg, x, *rest):
+    """``x`` redistributed to ``P(batch_axes, *rest)`` when the config pins
+    and ``x`` is a DTensor (the reference's ``with_sharding_constraint``);
+    else ``x``."""
+    if cfg.batch_axes is None:
+        return x
+    return redistribute(x, P(cfg.batch_axes, *rest))
+
+
+def _local_map(fn, out_placements, in_placements, mesh):
+    """``local_map`` over ``mesh``, the inputs redistributed to
+    ``in_placements`` first."""
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements, device_mesh=mesh,
+                     redistribute_inputs=True)
+
+
 def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
@@ -399,6 +431,31 @@ def _layer(params: LM, i: int) -> Dict[str, Tensor]:
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+def _group_heads(q: Tensor, hkv: int) -> Tensor:
+    """``q [B, S, H, D]`` as ``[B, S, Hkv, H / Hkv, D]``; a DTensor's split
+    of the heads over a mesh dimension that does not divide ``Hkv`` is
+    gathered first (DTensor cannot unflatten it)."""
+    if is_dtensor(q):
+        from torch.distributed.tensor import Replicate
+
+        mesh = q.device_mesh
+        pl = [Replicate() if p.is_shard(2) and hkv % mesh.size(m) else p
+              for m, p in enumerate(q.placements)]
+        if pl != list(q.placements):
+            q = q.redistribute(mesh, pl)
+    b, s, h, d = q.shape
+    return q.reshape(b, s, hkv, h // hkv, d)
+
+
+def _fill_dead(logits: Tensor, dead: Tensor) -> Tensor:
+    """``logits`` with the ``dead`` entries at -1e30: in place, or out of
+    place on a DTensor (whose partial sums cannot be written in place;
+    the mask replicated)."""
+    if is_dtensor(logits):
+        return logits.masked_fill(replicate_like(dead, logits), NEG_INF)
+    return logits.masked_fill_(dead, NEG_INF)
+
+
 def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                     chunk: int) -> Tensor:
     """Streaming-softmax attention: a loop over KV chunks with running
@@ -408,26 +465,27 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     t, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     n_chunks = t // chunk
-    qg = q.reshape(b, s, hkv, g, dq).float() / math.sqrt(dq)
+    qg = _group_heads(q, hkv).float() / math.sqrt(dq)
     q_pos = torch.arange(s, device=q.device)
     dv = v.shape[-1]
-    acc = torch.zeros((b, hkv, g, s, dv), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((b, hkv, g, s), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
+    acc = replicate_like(torch.zeros((b, hkv, g, s, dv), dtype=torch.float32,
+                                     device=q.device), q)
+    m = replicate_like(torch.full((b, hkv, g, s), NEG_INF,
+                                  dtype=torch.float32, device=q.device), q)
+    l = replicate_like(torch.zeros((b, hkv, g, s), dtype=torch.float32,
+                                   device=q.device), q)
     for idx in range(n_chunks):
         k_i = k[:, idx * chunk:(idx + 1) * chunk]
         v_i = v[:, idx * chunk:(idx + 1) * chunk]
         logits = torch.einsum("bshgd,bthd->bhgst", qg, k_i.float())
         if causal:
             k_pos = idx * chunk + torch.arange(chunk, device=q.device)
-            mask = q_pos[:, None] >= k_pos[None, :]
-            logits.masked_fill_(~mask, NEG_INF)
+            logits = _fill_dead(logits, ~(q_pos[:, None] >= k_pos[None, :]))
         m_new = torch.maximum(m, logits.amax(dim=-1))
         # amax saved ``logits`` for its backward: subtract out of place
         # when a graph is being recorded
-        shifted = (logits - m_new[..., None] if logits.requires_grad
+        shifted = (logits - m_new[..., None]
+                   if logits.requires_grad or is_dtensor(logits)
                    else logits.sub_(m_new[..., None]))
         p = torch.exp(shifted)
         del shifted
@@ -442,12 +500,36 @@ def _attend_chunked(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
 
 
+def _kernel_placements(q: Tensor, k: Tensor) -> list:
+    """The placements kernel h runs under on q's mesh: q's split of the
+    batch (dim 0), and of the heads (dim 2) where the query and the
+    key/value heads both divide that mesh dimension (then each rank's
+    query heads use its own key/value heads); every other dimension
+    whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, out = q.device_mesh, []
+    for m, pl in enumerate(q.placements):
+        size = mesh.size(m)
+        if pl == Shard(0) or (pl == Shard(2) and q.shape[2] % size == 0
+                              and k.shape[2] % size == 0):
+            out.append(pl)
+        else:
+            out.append(Replicate())
+    return out
+
+
 def _attend_kernel(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     """Causal attention from the first position on kernel h: q/k/v
     transposed to ``[B, H, S, D]``, one ``flash_attention`` call with the
     whole lengths as blocks (the CUDA kernel picks its own tile, so any
     S), transposed back. On CPU tensors the wrapper runs its plain
-    version."""
+    version. On DTensors each rank launches the kernel once on its own
+    block (``local_map``; ``_kernel_placements``)."""
+    if is_dtensor(q):
+        pl = _kernel_placements(q, k)
+        return _local_map(_attend_kernel, pl, (pl, pl, pl),
+                          q.device_mesh)(q, k, v)
     s, t = q.shape[1], k.shape[1]
     out = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=True, block_q=s,
@@ -467,14 +549,13 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         return _attend_kernel(q, k, v)
     b, s, h, dq = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
-    qg = q.reshape(b, s, hkv, g, dq)
+    qg = _group_heads(q, hkv)
     logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
                           k.float()).div_(math.sqrt(dq))
     if causal:
         q_pos = q_offset + torch.arange(s, device=q.device)[:, None]
         k_pos = torch.arange(t, device=q.device)[None, :]
-        logits.masked_fill_(~(q_pos >= k_pos), NEG_INF)
+        logits = _fill_dead(logits, ~(q_pos >= k_pos))
     probs = torch.softmax(logits, dim=-1)
     del logits
     out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
@@ -482,9 +563,64 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, causal: bool,
 
 
 def _proj(x: Tensor, w: Tensor) -> Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul (``w`` of any rank
+    from 2; ``_local_contract`` on a DTensor weight)."""
+    if is_dtensor(w):
+        return _local_contract(x, w, 1)
     return (x @ w.reshape(w.shape[0], -1)).reshape(
         x.shape[:-1] + tuple(w.shape[1:]))
+
+
+def _local_contract(x: Tensor, w: Tensor, c: int) -> Tensor:
+    """``x``'s last ``c`` dimensions contracted with ``w``'s first ``c``
+    (``tensordot``), on each rank's block (``local_map``), so no split
+    dimension is ever flattened or unflattened (DTensor refuses to merge
+    a split dimension of size 1, or to unflatten ``h * k`` split
+    unevenly). Per mesh dimension: ``x``'s split of a leading dimension
+    is kept; ``w``'s split of a contracted dimension is kept where ``x``
+    splits the same one (a partial sum: tensor parallelism), else
+    all-gathered (FSDP); ``w``'s split of an output dimension (heads) is
+    kept unless ``x`` is split there too. The gradients' placements
+    follow (a partial sum where the other operand's split made it
+    one)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x = replicate_like(x, w)
+    mesh = w.device_mesh
+    lead = x.dim() - c
+    x_pl, w_pl, out_pl, xg_pl, wg_pl = [], [], [], [], []
+    for m in range(mesh.ndim):
+        px, pw = x.placements[m], w.placements[m]
+        xd = px.dim if px.is_shard() else None
+        wd = pw.is_shard() and pw.dim
+        if xd is not None and xd < lead:                  # batch split
+            x_pl.append(px), w_pl.append(Replicate())
+            out_pl.append(Shard(xd)), xg_pl.append(px)
+            wg_pl.append(Partial())
+        elif (xd is not None and pw.is_shard() and wd < c
+              and xd == lead + wd):                        # contraction
+            x_pl.append(px), w_pl.append(pw)
+            out_pl.append(Partial()), xg_pl.append(px), wg_pl.append(pw)
+        elif pw.is_shard() and wd >= c:                    # output split
+            x_pl.append(Replicate()), w_pl.append(pw)
+            out_pl.append(Shard(lead + wd - c)), xg_pl.append(Partial())
+            wg_pl.append(pw)
+        else:
+            x_pl.append(Replicate()), w_pl.append(Replicate())
+            out_pl.append(Replicate()), xg_pl.append(Replicate())
+            wg_pl.append(Replicate())
+
+    def local(x_, w_):
+        k = math.prod(w_.shape[:c])
+        return (x_.reshape(x_.shape[:lead] + (k,))
+                @ w_.reshape(k, -1)).reshape(
+                    x_.shape[:lead] + tuple(w_.shape[c:]))
+
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(x_pl, w_pl),
+                     in_grad_placements=(xg_pl, wg_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def _gqa_qkv(cfg, lp, x, positions):
@@ -506,7 +642,7 @@ def _gqa_qkv(cfg, lp, x, positions):
 def _mla_q(cfg, lp, x, positions):
     m = cfg.mla or MLAConfig()
     if m.q_lora:
-        cq = rms_norm(x @ lp["w_dq"], lp["q_ln"], cfg.norm_eps)
+        cq = rms_norm(_proj(x, lp["w_dq"]), lp["q_ln"], cfg.norm_eps)
     else:
         cq = x
     q = _proj(cq, lp["w_uq"])
@@ -519,7 +655,7 @@ def _mla_latent(cfg, lp, x, positions):
     """Returns the per-token latent cache entry: c_kv [B,S,R], k_rope
     [B,S,1,Dr]."""
     m = cfg.mla or MLAConfig()
-    dkv = x @ lp["w_dkv"]
+    dkv = _proj(x, lp["w_dkv"])
     c_kv = rms_norm(dkv[..., : m.kv_lora], lp["kv_ln"], cfg.norm_eps)
     k_rope = rope(dkv[..., m.kv_lora:][:, :, None, :], positions,
                   cfg.rope_theta)
@@ -533,7 +669,7 @@ def _mla_scores(cfg, lp, q, c_kv, k_rope):
     q_rope = q[..., m.nope_head_dim:]
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, lp["w_uk"])
     logits = torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv.float())
-    logits += torch.einsum("bshk,btk->bhst", q_rope.float(),
+    logits = logits + torch.einsum("bshk,btk->bhst", q_rope.float(),
                            k_rope[:, :, 0].float())
     return logits.div_(math.sqrt(m.nope_head_dim + m.rope_head_dim))
 
@@ -552,25 +688,62 @@ def _mla_attend(cfg, lp, q, c_kv, k_rope, causal, q_offset=0):
     k_nope[h] = c_kv @ w_uk[h]; score = q_nope.k_nope + q_rope.k_rope.
     The nope part is computed in the latent space by absorbing w_uk into
     q (q_lat = q_nope @ w_uk^T), so per-token decode work is O(R).
+    On DTensors, each rank's batch and head block (``_mla_local``).
     """
+    if is_dtensor(q):
+        return _mla_local(cfg, lp, q, c_kv, k_rope, causal, q_offset)
     logits = _mla_scores(cfg, lp, q, c_kv, k_rope)
     s, t = q.shape[1], c_kv.shape[1]
     if causal:
         q_pos = q_offset + torch.arange(s, device=q.device)[:, None]
         k_pos = torch.arange(t, device=q.device)[None, :]
-        logits.masked_fill_(~(q_pos >= k_pos), NEG_INF)
+        logits = _fill_dead(logits, ~(q_pos >= k_pos))
     probs = torch.softmax(logits, dim=-1)
     del logits
     return _mla_values(lp, probs, c_kv, q.dtype)
+
+
+def _mla_local(cfg, lp, q, c_kv, k_rope, causal, q_offset):
+    """``_mla_attend`` on each rank's block (``local_map``): per mesh
+    dimension, a batch split of ``q`` keeps the latents' batch split and
+    gathers ``w_uk`` / ``w_uv``; a head split keeps the weights' head
+    split and gathers the latents (every head reads all of them); any
+    other split of ``q`` is gathered. The gradients of what was gathered
+    are partial sums."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    q_pl, kv_pl, w_pl, kv_g, w_g = [], [], [], [], []
+    for p in q.placements:
+        batch, heads = p == Shard(0), p == Shard(2)
+        q_pl.append(p if batch or heads else Replicate())
+        kv_pl.append(Shard(0) if batch else Replicate())
+        w_pl.append(Shard(1) if heads else Replicate())
+        kv_g.append(Shard(0) if batch else Partial() if heads
+                    else Replicate())
+        w_g.append(Shard(1) if heads else Partial() if batch
+                   else Replicate())
+
+    def local(q_, c_, r_, uk, uv):
+        return _mla_attend(cfg, {"w_uk": uk, "w_uv": uv}, q_, c_, r_,
+                           causal, q_offset)
+
+    c_kv, k_rope = replicate_like(c_kv, q), replicate_like(k_rope, q)
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl, w_pl, w_pl),
+                     in_grad_placements=(q_pl, kv_g, kv_g, w_g, w_g),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         q, c_kv, k_rope, lp["w_uk"], lp["w_uv"])
 
 
 # ---------------------------------------------------------------------------
 # FFN / MoE
 # ---------------------------------------------------------------------------
 def _dense_ffn(lp, x):
-    gate = F.silu(x @ lp["w_gate"])
-    up = x @ lp["w_up"]
-    return (gate * up) @ lp["w_down"]
+    gate = F.silu(_proj(x, lp["w_gate"]))
+    up = _proj(x, lp["w_up"])
+    return _proj(gate * up, lp["w_down"])
 
 
 def _top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -582,7 +755,29 @@ def _top_k(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
 
 def _moe_ffn(cfg: LMConfig, lp, x):
     """Sort-based capacity MoE (shared experts always-on). Returns the
-    output and the GShard load-balancing aux loss (float32)."""
+    output and the GShard load-balancing aux loss (float32).
+
+    On DTensors the whole block runs on each rank on the replicated
+    tokens and experts (``local_map``): the capacity, the stable sort
+    and the drop depend on the global token list, so each rank
+    computes all of it and the output is pinned back to the batch split
+    (the reference's ``_pin``). The expert weights are all-gathered a
+    layer; an expert-parallel dispatch is not ported."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        rep = [Replicate()] * mesh.ndim
+        names = ["router", "w_gate", "w_up", "w_down"]
+        if cfg.moe.n_shared:
+            names += ["ws_gate", "ws_up", "ws_down"]
+
+        def local(x_, *ws):
+            return _moe_ffn(cfg, dict(zip(names, ws)), x_)
+
+        out, aux = _local_map(local, (rep, rep), (rep,) * (1 + len(names)),
+                              mesh)(x, *(lp[n] for n in names))
+        return _pin(cfg, out, None, None), aux
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -643,6 +838,8 @@ def _ffn(cfg, lp, h):
 
 def _out_proj(attn: Tensor, w_o: Tensor) -> Tensor:
     """``einsum("bshk,hkd->bsd", attn, w_o)`` as one matmul."""
+    if is_dtensor(w_o):
+        return _local_contract(attn, w_o, 2)
     return attn.reshape(attn.shape[:2] + (-1,)) @ w_o.reshape(-1,
                                                               w_o.shape[-1])
 
@@ -651,35 +848,45 @@ def _out_proj(attn: Tensor, w_o: Tensor) -> Tensor:
 # blocks
 # ---------------------------------------------------------------------------
 def _gqa_attention(cfg, q, k, v, kernel_backend):
-    if cfg.attn_chunk and q.shape[1] % cfg.attn_chunk == 0:
+    """A layer's causal attention: kernel h under ``"cuda"`` (a streaming
+    softmax of its own, whatever ``attn_chunk``), else the reference's
+    streaming form where ``attn_chunk`` divides S, else ``_attend``."""
+    if (kernel_backend != "cuda" and cfg.attn_chunk
+            and q.shape[1] % cfg.attn_chunk == 0):
         return _attend_chunked(q, k, v, causal=True, chunk=cfg.attn_chunk)
     return _attend(q, k, v, causal=True, kernel_backend=kernel_backend)
 
 
 def _block(cfg: LMConfig, lp, x, positions, kernel_backend):
-    """One layer: ``(x_out, aux or None, this layer's cache entries)``."""
+    """One layer: ``(x_out, aux or None, this layer's cache entries)``,
+    with the reference's ``_layer_fwd`` pins (no-ops unless sharded)."""
+    x = _pin(cfg, x, None, None)
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     if cfg.attention == "mla":
-        q = _mla_q(cfg, lp, h, positions)
+        q = _pin(cfg, _mla_q(cfg, lp, h, positions), None, cfg.tp_axis,
+                 None)
         c_kv, k_rope = _mla_latent(cfg, lp, h, positions)
         attn = _mla_attend(cfg, lp, q, c_kv, k_rope, causal=True)
         lc = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         q, k, v = _gqa_qkv(cfg, lp, h, positions)
+        q = _pin(cfg, q, None, None, None)
         attn = _gqa_attention(cfg, q, k, v, kernel_backend)
         lc = {"k": k, "v": v}
     del h, q
-    x = x + _out_proj(attn, lp["w_o"])
+    attn = _pin(cfg, attn, None, None, None)
+    x = _pin(cfg, x + _out_proj(attn, lp["w_o"]), None, None)
     del attn
     h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
     y, aux = _ffn(cfg, lp, h)
-    return x + y, aux, lc
+    return x + _pin(cfg, y, None, None), aux, lc
 
 
 def _layer_fwd(cfg: LMConfig, lp, x, positions, kernel_backend="torch"):
     x, aux, _ = _block(cfg, lp, x, positions, kernel_backend)
     if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                         device=x.device), x)
     return x, aux
 
 
@@ -696,7 +903,28 @@ def _layer_remat(cfg: LMConfig, lp, x, positions, kernel_backend):
 
 def _logits(cfg, params, x):
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    return x.float() @ params.unembed.float()
+    return _proj(x.float(), params.unembed.float())
+
+
+def _region(params):
+    """The context a call on ``params`` runs in: ``replicated_region``
+    when they are DTensors, else none."""
+    if is_dtensor(params.embed):
+        return replicated_region()
+    return contextlib.nullcontext()
+
+
+def _embed(params, tokens: Tensor) -> Tensor:
+    """The token rows of ``embed`` (``F.embedding``: DTensor has its
+    vocab-parallel rule, whose partial rows are summed here)."""
+    x = F.embedding(replicate_like(tokens.long(), params.embed),
+                    params.embed)
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    return x
 
 
 def forward(cfg: LMConfig, params: LM, tokens: Tensor,
@@ -704,13 +932,18 @@ def forward(cfg: LMConfig, params: LM, tokens: Tensor,
     """tokens [B, S] -> (logits [B, S, vocab] f32, aux loss)."""
     backend = resolve_kernel_backend(cfg, params.embed.device,
                                      kernel_backend)
-    x = params.embed[tokens.long()]
-    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _layer_remat(cfg, _layer(params, i), x, positions, backend)
-        aux = aux + a
-    return _logits(cfg, params, x), aux / cfg.n_layers
+    with _region(params):
+        x = _pin(cfg, _embed(params, tokens), None, None)
+        positions = replicate_like(
+            torch.arange(tokens.shape[1], device=x.device)[None, :], x)
+        aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                         device=x.device), x)
+        for i in range(cfg.n_layers):
+            x, a = _layer_remat(cfg, _layer(params, i), x, positions,
+                                backend)
+            aux = aux + a
+        logits = _pin(cfg, _logits(cfg, params, x), None, cfg.tp_axis)
+        return logits, aux / cfg.n_layers
 
 
 def loss_fn(cfg: LMConfig, params: LM, tokens, targets,
@@ -719,9 +952,11 @@ def loss_fn(cfg: LMConfig, params: LM, tokens, targets,
     Differentiable on the plain path; the training entry points pass
     ``kernel_backend="torch"`` (the module docstring says why)."""
     logits, aux = forward(cfg, params, tokens, kernel_backend)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return nll.mean() + 0.01 * aux
+    with _region(params):
+        logp = torch.log_softmax(logits, dim=-1)
+        idx = replicate_like(targets.long()[..., None], logp)
+        nll = -torch.gather(logp, -1, idx)[..., 0]
+        return nll.mean() + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -767,10 +1002,46 @@ def _write_slot(buf: Tensor, new: Tensor, pos: Tensor) -> None:
     """``dynamic_update_slice(buf, new, (0, pos, 0...))`` in place: the
     one-slot update ``new`` [B, 1, ...] at sequence slot ``pos`` (a 0-d
     device tensor), the start clamped to ``[0, T - 1]`` as XLA clamps it
-    (a write past the end lands on the last slot)."""
+    (a write past the end lands on the last slot). On a DTensor cache,
+    whose length may be split, each rank writes its own block
+    (``local_map``): the row lands where the clamped slot falls in the
+    block, and a rank whose block does not hold it writes its own row
+    back."""
     t = buf.shape[1]
+    if is_dtensor(buf):
+        _write_slot_local(buf, new, pos)
+        return
     idx = pos.clamp(0, t - 1).reshape(1).long()
     buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
+def _write_slot_local(buf: Tensor, new: Tensor, pos: Tensor) -> None:
+    """``_write_slot`` on each rank's block of DTensor ``buf``: ``new`` is
+    split as ``buf`` is but along the length, which it holds whole."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, t = buf.device_mesh, buf.shape[1]
+    _, offset = compute_local_shape_and_global_offset(buf.shape, mesh,
+                                                      buf.placements)
+    buf_pl = list(buf.placements)
+    new_pl = [Replicate() if p.is_shard(1) else p for p in buf_pl]
+    rep = [Replicate()] * mesh.ndim
+
+    def local(b, n, p):
+        at = p.clamp(0, t - 1) - offset[1]
+        inside = (at >= 0) & (at < b.shape[1])
+        idx = at.clamp(0, b.shape[1] - 1).reshape(1).long()
+        row = torch.where(inside, n.to(b.dtype), b.index_select(1, idx))
+        b.index_copy_(1, idx, row)
+        return b
+
+    local_map(local, out_placements=buf_pl,
+              in_placements=(buf_pl, new_pl, rep), device_mesh=mesh,
+              redistribute_inputs=True)(
+                  buf, replicate_like(new, buf), replicate_like(pos, buf))
 
 
 def _decode_layer(cfg, lp, x, layer_cache, pos):
@@ -788,7 +1059,7 @@ def _decode_layer(cfg, lp, x, layer_cache, pos):
         _write_slot(layer_cache["k_rope"], k_rope_new, pos)
         c_kv = layer_cache["c_kv"]
         logits = _mla_scores(cfg, lp, q, c_kv, layer_cache["k_rope"])
-        logits.masked_fill_(~kv_mask[None, None], NEG_INF)
+        logits = _fill_dead(logits, ~kv_mask[None, None])
         probs = torch.softmax(logits, dim=-1)
         del logits
         attn = _mla_values(lp, probs, c_kv, x.dtype)
@@ -799,11 +1070,10 @@ def _decode_layer(cfg, lp, x, layer_cache, pos):
         k, v = layer_cache["k"], layer_cache["v"]
         b, s, hh, dq = q.shape
         hkv = k.shape[2]
-        g = hh // hkv
-        qg = q.reshape(b, s, hkv, g, dq)
+        qg = _group_heads(q, hkv)
         logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
                               k.float()).div_(math.sqrt(dq))
-        logits.masked_fill_(~kv_mask[None, None, None], NEG_INF)
+        logits = _fill_dead(logits, ~kv_mask[None, None, None])
         probs = torch.softmax(logits, dim=-1)
         del logits
         attn = torch.einsum("bhgst,bthd->bshgd", probs, v.float()).reshape(
@@ -822,15 +1092,16 @@ def decode_step(cfg: LMConfig, params: LM, cache: Dict[str, Tensor],
     written into ``cache``'s tensors at slot ``length`` and the same
     dict is returned with ``length`` advanced by one (a new 0-d tensor).
     Plain PyTorch on every backend (the reference's float32 einsums)."""
-    x = params.embed[token.long()][:, None, :]  # [B,1,d]
-    pos = cache["length"]
-    names = [k for k in cache if k != "length"]
-    for i in range(cfg.n_layers):
-        x = _decode_layer(cfg, _layer(params, i), x,
-                          {k: cache[k][i] for k in names}, pos)
-    logits = _logits(cfg, params, x)[:, 0]
-    cache["length"] = pos + 1
-    return logits, cache
+    with _region(params):
+        x = _embed(params, token)[:, None, :]  # [B,1,d]
+        pos = cache["length"]
+        names = [k for k in cache if k != "length"]
+        for i in range(cfg.n_layers):
+            x = _decode_layer(cfg, _layer(params, i), x,
+                              {k: cache[k][i] for k in names}, pos)
+        logits = _logits(cfg, params, x)[:, 0]
+        cache["length"] = pos + 1
+        return logits, cache
 
 
 def prefill(cfg: LMConfig, params: LM, tokens: Tensor,
@@ -839,15 +1110,28 @@ def prefill(cfg: LMConfig, params: LM, tokens: Tensor,
     backend = resolve_kernel_backend(cfg, params.embed.device,
                                      kernel_backend)
     b, s = tokens.shape
-    x = params.embed[tokens.long()]
-    positions = torch.arange(s, device=x.device)[None, :]
-    cache = {name: torch.empty(shape, dtype=cfg.dtype, device=x.device)
-             for name, shape in _cache_shapes(cfg, b, s).items()}
-    for i in range(cfg.n_layers):
-        x, _, lc = _block(cfg, _layer(params, i), x, positions, backend)
-        for name, val in lc.items():
-            cache[name][i] = val
-        del lc
-    logits = _logits(cfg, params, x[:, -1:])[:, 0]
-    cache["length"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    return logits, cache
+    sharded = is_dtensor(params.embed)
+    with _region(params):
+        x = _pin(cfg, _embed(params, tokens), None, None)
+        positions = replicate_like(
+            torch.arange(s, device=x.device)[None, :], x)
+        if sharded:  # each layer's entries, stacked at the end
+            cache = {name: [] for name in _cache_shapes(cfg, b, s)}
+        else:
+            cache = {name: torch.empty(shape, dtype=cfg.dtype,
+                                       device=x.device)
+                     for name, shape in _cache_shapes(cfg, b, s).items()}
+        for i in range(cfg.n_layers):
+            x, _, lc = _block(cfg, _layer(params, i), x, positions, backend)
+            for name, val in lc.items():
+                if sharded:
+                    cache[name].append(val)
+                else:
+                    cache[name][i] = val
+            del lc
+        if sharded:
+            cache = {name: torch.stack(vals) for name, vals in cache.items()}
+        logits = _logits(cfg, params, x[:, -1:])[:, 0]
+        cache["length"] = torch.tensor(s, dtype=torch.int32,
+                                       device=x.device)
+        return logits, cache

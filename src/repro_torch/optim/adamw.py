@@ -18,19 +18,27 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..parallel.sharding import is_dtensor
 from .params import ParamDict, named, tensors_from_reference
 
 Tensor = torch.Tensor
 
 
+def f32_zeros(t: Tensor) -> Tensor:
+    """Float32 zeros shaped and placed like ``t`` (a DTensor's placements
+    kept)."""
+    if is_dtensor(t):
+        return torch.zeros_like(t, dtype=torch.float32)
+    return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+
+
 def adamw_init(params) -> Dict[str, Any]:
-    """``{"m", "v"}``: float32 zeros named like ``params`` (``ParamDict``s),
-    ``"count"``: a 0-d int32 zero, on the parameters' device."""
+    """``{"m", "v"}``: float32 zeros named like ``params`` (``ParamDict``s;
+    a DTensor parameter's moments placed as it is), ``"count"``: a 0-d
+    int32 zero, on the parameters' device."""
     p = named(params)
-    f32 = lambda t: torch.zeros(t.shape, dtype=torch.float32,  # noqa: E731
-                                device=t.device)
     dev = next(iter(p.values())).device if p else torch.device("cpu")
-    return {"m": p.like(f32), "v": p.like(f32),
+    return {"m": p.like(f32_zeros), "v": p.like(f32_zeros),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 

@@ -8,7 +8,8 @@ mapping of name to tensor; the step makes its tensors require grad
 (``optim.params.trainable``), takes the gradients with
 ``torch.autograd.grad`` and updates the parameters and the optimizer
 state in place (the reference's ``donate_argnums=(0, 1)``). With
-``micro_batches > 1`` the leading axis of every batch tensor is split
+``micro_batches > 1`` the leading axis of every batch tensor (also
+inside a tuple, list or dict passed as one argument) is split
 into contiguous chunks (the reference's ``reshape((mb, B // mb) + ...)``)
 and each chunk's gradients are accumulated into float32 buffers, not
 into ``.grad`` (which would accumulate in the parameters' dtype), then
@@ -17,14 +18,17 @@ parameters' dtype, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..optim.adamw import adamw_init, adamw_update, clip_by_global_norm
+from ..optim.adamw import (adamw_init, adamw_update, clip_by_global_norm,
+                           f32_zeros)
 from ..optim.params import ParamDict, trainable
 from ..optim.schedule import cosine_with_warmup
+from ..parallel.sharding import is_dtensor, replicated_region
 from . import checkpoint as ckpt
 from .fault import PreemptionGuard, StragglerMonitor
 
@@ -43,12 +47,22 @@ class TrainConfig:
 
 
 def _micro(x: Any, mb: int, i: int) -> Any:
-    """Micro-batch ``i`` of ``mb``: the ``i``-th contiguous chunk of the
-    leading axis."""
-    if not isinstance(x, torch.Tensor):
-        raise TypeError("micro_batches > 1 splits tensor batches only, got "
-                        f"{type(x).__name__}")
-    return x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
+    """Micro-batch ``i`` of ``mb`` of a batch argument: the ``i``-th
+    contiguous chunk of the leading axis of every tensor in it, through
+    tuples (named ones too), lists and dicts, each kept as its type; a
+    ``None`` stays ``None`` (the reference's ``jax.tree.map`` over the
+    batch's leaves)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))[i]
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return type(x)((k, _micro(v, mb, i)) for k, v in x.items())
+    if isinstance(x, (tuple, list)):
+        parts = [_micro(v, mb, i) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else type(x)(parts)
+    raise TypeError("micro_batches > 1 splits tensors and tuples, lists "
+                    f"and dicts of them, got {type(x).__name__}")
 
 
 def _grad(loss: torch.Tensor, leaves) -> Tuple[torch.Tensor, ...]:
@@ -64,6 +78,12 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], tc: TrainConfig):
 
     def train_step(params, opt_state, step, *batch):
         named = trainable(params)
+        # DTensor parameters: plain tensors beside them replicated
+        sharded = any(is_dtensor(t) for t in named.values())
+        with (replicated_region() if sharded else contextlib.nullcontext()):
+            return _step(named, params, opt_state, step, batch)
+
+    def _step(named, params, opt_state, step, batch):
         names, leaves = list(named), list(named.values())
         mb = tc.micro_batches
         with torch.enable_grad():
@@ -72,8 +92,7 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], tc: TrainConfig):
                 grads = list(_grad(loss, leaves))
                 loss = loss.detach()
             else:
-                grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device) for p in leaves]
+                grads = [f32_zeros(p) for p in leaves]
                 loss = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
                 for i in range(mb):

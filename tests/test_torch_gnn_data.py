@@ -184,7 +184,35 @@ def test_gnn_configs_equal_reference(name, size):
 
 @pytest.mark.parametrize("name", GNN_ARCHS)
 def test_shard_axes_other_than_none_raises(name):
+    """Every config takes ``shard_axes`` (the pod cells' pin); on plain
+    tensors it changes nothing, and on a sharded batch a segment count
+    the axes' ranks do not divide raises, as the reference requires
+    (cells pad to 512). The sharded paths' values: 4 gloo ranks in
+    ``tests/test_torch_sharded_models_ranks.py``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import gnn
+    from repro_torch.parallel.sharding import P, distribute
+
     cfg = configs.get_arch(name).smoke()
     assert cfg.shard_axes is None
-    with pytest.raises(ValueError, match="Queue 1 E"):
-        dataclasses.replace(cfg, shard_axes=("data", "model"))
+    pinned = dataclasses.replace(cfg, shard_axes=("data", "model"))
+    assert pinned.shard_axes == ("data", "model")
+    x, ids = torch.ones(8, 3), torch.arange(8) % 6
+    assert torch.equal(gnn._sharded_seg_sum(x, ids, 6, pinned.shard_axes),
+                       gnn._seg_sum(x, ids, 6))
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"))
+        xs = distribute(x, P(("data", "model"), None), mesh)
+        ids_s = distribute(ids, P(("data", "model")), mesh)
+        with pytest.raises(ValueError, match="do not split over the 4"):
+            gnn._sharded_seg_sum(xs, ids_s, 6, pinned.shard_axes)
+        with pytest.raises(ValueError, match="do not split over the 4"):
+            gnn._sharded_gather(distribute(torch.ones(6, 3), P(), mesh),
+                                ids_s, pinned.shard_axes)
+    finally:
+        dist.destroy_process_group()

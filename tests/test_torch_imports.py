@@ -33,10 +33,11 @@ def test_import_every_module_without_jax_or_repro():
                      if k == "jax" or k.startswith(("jax.", "jaxlib"))
                      or k == "repro" or k.startswith("repro."))
         assert not bad, bad
-        assert len(names) >= 62, names
+        assert len(names) >= 65, names
         for new in ("optim.adamw", "optim.compression", "optim.params",
                     "optim.schedule", "train.checkpoint", "train.fault",
-                    "train.loop", "launch.steps", "launch.train"):
+                    "train.loop", "launch.steps", "launch.train",
+                    "parallel", "parallel.sharding", "launch.dryrun"):
             assert "repro_torch." + new in names, new
         print("ok", len(names))
     """)

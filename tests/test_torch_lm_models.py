@@ -444,12 +444,34 @@ def test_cuda_backend_on_the_cpu_raises_at_every_entry_point():
 
 
 def test_sharding_pins_raise():
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 E"):
-        dataclasses.replace(configs.get_arch("qwen2-7b").smoke(),
-                            batch_axes="data")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 E"):
-        dataclasses.replace(configs.get_arch("qwen2-7b").smoke(),
-                            tp_axis="model")
+    """The pins are accepted and change nothing on plain tensors; on
+    DTensor parameters a pin naming an axis the mesh lacks raises. The
+    sharded paths' values: 4 gloo ranks in
+    ``tests/test_torch_sharded_models_ranks.py``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import lm_param_specs, shard_params
+
+    cfg = dataclasses.replace(configs.get_arch("qwen2-7b").smoke(),
+                              dtype=torch.float32)
+    pinned = dataclasses.replace(cfg, batch_axes="data", tp_axis="model")
+    model = T.init_params(cfg, device="cpu")
+    toks = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    want, _ = T.forward(cfg, model, toks, "torch")
+    got, _ = T.forward(pinned, model, toks, "torch")
+    assert torch.equal(got, want)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"))
+        sharded = shard_params(model.converted(), lm_param_specs(cfg), mesh)
+        with pytest.raises(ValueError, match="no axis 'pod'"):
+            T.forward(dataclasses.replace(pinned, batch_axes=("pod", "data")),
+                      sharded, toks, "torch")
+    finally:
+        dist.destroy_process_group()
 
 
 def test_converted_copies_and_cuts_layers():

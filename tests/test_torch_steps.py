@@ -103,9 +103,13 @@ def test_smoke(arch, shape):
 
 
 def test_multi_pod_and_the_card_default_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 E"):
-        build_cell("qwen2-7b", "train_4k", smoke=True, multi_pod=True,
-                   device="cpu")
+    """``multi_pod=True`` builds the cell with the 2x16x16 mesh's specs
+    (``tests/test_torch_sharding.py`` holds every cell's to the
+    reference's); without a card the default device raises."""
+    prog = build_cell("qwen2-7b", "train_4k", smoke=True, multi_pod=True,
+                      device="cpu")
+    assert tuple(prog.in_specs[2]) == (("pod", "data"), None)
+    assert prog.abstract_inputs[0].cfg.batch_axes is None  # smoke: unpinned
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_cell("pna", "molecule", smoke=True)
