@@ -11,9 +11,10 @@ NequIP) at ``full()`` width on the GNN cells, serves the LM stack
 deepseek-v2-lite-16b) at ``full()`` width and depth, trains on the
 card (qwen2-7b at full width, the dynamic-graph GNN trainer whose
 maintainer launches the core-maintenance kernels between steps, and
-``launch/steps.py``'s train cells), and runs the sharded paths
+``launch/steps.py``'s train cells), runs the sharded paths
 (``parallel/sharding.py``'s placements, the LM and GNN pins, the pod
-dry-run) over a world of one NCCL rank.
+dry-run) over a world of one NCCL rank, and audits the main path's
+batch program on both kernel backends (``repro_torch.analysis``).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -221,6 +222,31 @@ Phases:
      held within 25% of the CPU's, its collective bytes by kind,
      argument bytes and dominant roofline term printed. The attention
      rows of the kernels line gain ``sharded_launches`` (12a's).
+ 13. (run after phase 4, before phase 9) the auditor on the card at full
+     size (``phase_audit``): two maintainers from phase 4's starting
+     state, ``kernel_backend="cuda"`` and ``"torch"``, each apply phase
+     4's first mixed batch (launch counts from 0) under
+     ``analysis.walker.RoundRecorder``, ``torch.profiler`` and the
+     sync-debug mode (warn), the peak memory reset first: the cores and
+     labels are equal; each removal and promotion round (the ops between
+     two of its loop-condition syncs, a ``record_function`` range each)
+     of ``"cuda"`` launches strictly fewer CUDA kernels
+     (``walker.profile_round_kernels``, as the card audit counts them)
+     than the same round of ``"torch"`` (each ratio printed) over equal
+     c10d schedules (none on one device); the recorded syncs are the
+     sync-debug warnings, each named in ``hostlint.SYNC_SITES``, each
+     loop condition exactly once an iteration of its loop (rounds, waves
+     and eviction rounds as ``walker.LoopCounter`` counts them), the
+     lane uploads six, and every other sync as often as the unified
+     manifest's card section (``"1x1@cuda"``) counts it; the torch run's
+     peak stays within 1.5x the manifest's peak formula at this size
+     (the recorder cannot see CUB's sort workspace); the narrowing check
+     on fresh copies finds no value outside its type; and ``python -m
+     repro_torch.analysis.audit --engine unified,cuda,sharded --device
+     cuda`` (``sharded``: the ``cuda`` config's torch twin), a child
+     started first, passes against the committed manifests with every
+     check run. The rows of kernels a, b and c gain
+     ``audit_launches``.
 
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
@@ -334,6 +360,11 @@ P12_RATIO = {
 }  # (16x16, 2x16x16)
 P12_DRYRUN_TIMEOUT = 600
 BF16_STILL = ("final_norm", "layers.ln_attn", "layers.ln_ffn")
+P13_PEAK_MARGIN = 1.5     # phase 13: the torch run's peak over the formula
+P13_AUDIT_TIMEOUT = 300   # phase 13's audit child (--device cuda)
+# phase 13: core/api.py's apply_batch uploads the unweighted maintainer's
+# six padded lane arrays (iu, iv, iok, ru, rv, rok), one sync each
+P13_LANE_UPLOADS = 6
 # phase 6's ell_stat rows: (op, values), values from stat_values
 STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
              ("max", "i32"), ("sum", "f32"), ("max", "f32"),
@@ -3350,7 +3381,7 @@ def phase_deepfm(device) -> list:
     rows = []
     for cell in RECSYS_SHAPES:
         if cell.kind not in ("serve", "retrieval"):
-            continue  # training DeepFM is ROADMAP Queue 1 item 13
+            continue  # DeepFM trains in phase 11e
         b = cell.params["batch"]
         rng = np.random.default_rng(0)
         ids = torch.from_numpy(rng.integers(
@@ -3464,6 +3495,252 @@ def phase_api_on_core_state(device, me, nbrs, feats) -> None:
         f"ell_aggregate sum/max (float32, bfloat16) == plain")
 
 
+def start_audit_child():
+    """Phase 13's ``python -m repro_torch.analysis.audit --engine
+    unified,cuda,sharded --device cuda`` (a world of one NCCL rank of its
+    own, at ``AuditParams``, against the committed manifests), started
+    first so it runs beside the full-size runs; its JSON report goes to a
+    file."""
+    import os
+    import tempfile
+    out = Path(tempfile.mkdtemp()) / "audit.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis.audit", "--engine",
+         "unified,cuda,sharded", "--device", "cuda", "--out", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out
+
+
+def p13_sync_warnings(records) -> int:
+    """The ``torch.cuda`` sync-debug warnings among recorded warnings
+    (one a synchronizing operation; the mode's own notice left out)."""
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in records)
+
+
+def p13_run(device, start, kb, ev, profile: bool) -> dict:
+    """One maintainer from a copy of phase 4's starting state on
+    ``kernel_backend=kb``, then phase 4's first mixed batch through
+    ``apply_batch`` under the recorder: with ``profile``, counting each
+    round's CUDA kernels (``torch.profiler``) and the loops' iterations,
+    under ``torch.cuda``'s sync-debug mode (warn), the peak memory reset
+    first; without, under the narrowing check (the dtype policy at full
+    size, its flags read once after)."""
+    import warnings
+    import torch
+    from repro_torch.analysis.rules import round_kernels
+    from repro_torch.analysis.walker import RoundRecorder
+    from repro_torch.core.api import CoreMaintainer
+    from repro_torch.kernels import coremaint as K
+
+    m = CoreMaintainer(
+        n=start["n"], capacity=start["capacity"], src=start["src"].clone(),
+        dst=start["dst"].clone(), valid=start["valid"].clone(),
+        n_edges=start["n_edges"].clone(), core=start["core"].clone(),
+        label=start["label"].clone(), n_levels=start["n_levels"],
+        kernel_backend=kb)
+    sync(device)
+    out = dict(m=m)
+    if not profile:
+        with RoundRecorder(check_narrowing=True) as rec:
+            st = m.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals)
+        sync(device)
+        out.update(st=st, rec=rec)
+        return out
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        m.src, m.dst, m.valid, m.n_edges, m.core, m.label))
+    K.reset_launches()  # the counts of this run from 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rec = RoundRecorder(profile_kernels=True)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        with rec:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = m.apply_batch(insert_edges=ev.edges,
+                                   remove_edges=ev.removals)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base + state_bytes
+    out.update(st=st, rec=rec, wall=wall, peak=peak,
+               warnings=p13_sync_warnings(wl),
+               launches={k: c for k, c in K.LAUNCHES.items() if c},
+               per_round=round_kernels(rec.sites))
+    return out
+
+
+def p13_check_syncs(kb, r, want, rm_rounds, ins_rounds) -> None:
+    """Every sync of a phase 13 run is named in ``SYNC_SITES``; each loop
+    condition syncs exactly once an iteration of its loop (rounds, waves
+    and eviction rounds as the interpreter counted them), the fixpoints'
+    iterations are the batch's rounds; ``core/api.py`` uploads the six
+    lane arrays and syncs nowhere else; every other sync happens as often
+    as the card's manifest counts it at ``AuditParams``; and the recorded
+    syncs are exactly the sync-debug warnings."""
+    from repro_torch.analysis.hostlint import sites_by_where
+    from repro_torch.analysis.rules import LOOP_PERS, loop_sync_mismatches
+    from repro_torch.analysis.walker import count_syncs
+
+    named = sites_by_where()
+    rec = r["rec"]
+    got = count_syncs(rec.sites)
+    it = {w: n for w, n in rec.iterations.items() if n}
+    total = sum(sum(v.values()) for v in got.values())
+    log(f"phase 13 {kb}: syncs {json.dumps(got)} total={total} "
+        f"sync-debug warnings={r['warnings']}; loop iterations "
+        f"{json.dumps(it)}")
+    check(total == r["warnings"], f"phase 13 {kb}: {total} recorded syncs "
+          f"but {r['warnings']} sync-debug warnings")
+    check(it.get("core/remove.py::removal_fixpoint") == rm_rounds
+          and it.get("core/insert.py::promotion_fixpoint") == ins_rounds,
+          f"phase 13 {kb}: the fixpoints iterated {it} for {rm_rounds} "
+          f"removal and {ins_rounds} promotion rounds")
+    bad = loop_sync_mismatches(rec.sites, rec.iterations)
+    check(not bad, f"phase 13 {kb}: {bad}")
+    for kind, per in got.items():
+        for where, cnt in per.items():
+            entry = named.get((where, kind))
+            check(entry is not None, f"phase 13 {kb}: an extra {kind} sync "
+                  f"at {where} (no SYNC_SITES entry)")
+            if kind == "round" and entry.per in LOOP_PERS:
+                continue  # held to its loop's iterations above
+            if where == "core/api.py::apply_batch":
+                exp = P13_LANE_UPLOADS
+            else:
+                exp = want[kind].get(where)
+            check(cnt == exp, f"phase 13 {kb}: {where} synced {cnt} times "
+                  f"a batch, expected {exp}")
+
+
+def phase_audit(device, start, stream) -> dict:
+    """Phase 13: the auditor on the card at full size (the module
+    docstring). Returns the cuda run's launches of the main path's kernels
+    (the kernels line's ``audit_launches``)."""
+    import torch
+    from repro_torch.analysis.audit import load_budget
+    from repro_torch.analysis.rules import eval_formula
+    from repro_torch.analysis.walker import (RANGE_PREFIX, collectives,
+                                             count_round_launches)
+    from repro_torch.core.api import plan_window
+
+    t_start = time.perf_counter()
+    child, child_out = start_audit_child()
+    ev = stream[0]
+    runs = {kb: p13_run(device, start, kb, ev, profile=True)
+            for kb in ("cuda", "torch")}
+    a, b = runs["cuda"], runs["torch"]
+    check(torch.equal(a["m"].core, b["m"].core)
+          and torch.equal(a["m"].label, b["m"].label),
+          "phase 13: cores or labels differ between the two backends")
+    rm_rounds, ins_rounds = int(a["st"].remove_rounds), int(
+        a["st"].insert_rounds)
+    check((rm_rounds, ins_rounds) == (int(b["st"].remove_rounds),
+                                       int(b["st"].insert_rounds)),
+          "phase 13: round counts differ between the backends")
+    # CUDA kernels round for round (a round: the ops between two of its
+    # fixpoint's loop-condition syncs; rules.round_kernels, as the card
+    # audit's launch_budget_twin counts them)
+    check(set(a["per_round"]) == set(b["per_round"]),
+          f"phase 13: the profiled rounds differ: {sorted(a['per_round'])} "
+          f"vs {sorted(b['per_round'])}")
+    for func, rounds in (("removal_fixpoint", rm_rounds),
+                         ("promotion_fixpoint", ins_rounds)):
+        pairs = []
+        for k in range(rounds):
+            key = f"{RANGE_PREFIX}{func}:{k}"
+            check(key in a["per_round"], f"phase 13: no profiled {key}")
+            na, nb = a["per_round"][key], b["per_round"][key]
+            pairs.append((na, nb))
+            check(na < nb, f"phase 13: {key}: cuda launches {na} kernels, "
+                  f"not strictly fewer than torch's {nb}")
+        ratios = [na / nb for na, nb in pairs]
+        log(f"phase 13 {func}: CUDA kernels a round (cuda, torch) "
+            f"{json.dumps(pairs)}; ratio {min(ratios):.4f}-"
+            f"{max(ratios):.4f}")
+        for k in range(min(rounds, 2)):  # the first two rounds by name
+            key = f"{RANGE_PREFIX}{func}:{k}"
+            for kb in ("cuda", "torch"):
+                top = runs[kb]["rec"].kernel_names.get(key, {})
+                log(f"phase 13 {key} {kb} kernels: " + json.dumps(
+                    dict(sorted(top.items(), key=lambda x: -x[1])[:10])))
+    ca = [(c.op, c.out_bytes) for c in collectives(a["rec"].sites)]
+    cb = [(c.op, c.out_bytes) for c in collectives(b["rec"].sites)]
+    check(ca == cb, f"phase 13: c10d schedules differ: {ca} vs {cb}")
+    for kb, r in runs.items():
+        seg: dict = {}
+        for s in r["rec"].sites:
+            if s.in_round:
+                seg.setdefault(f"{s.round_func}:{s.round}", []).append(s)
+        log(f"phase 13 {kb}: wall_s={r['wall']:.4f} remove_rounds="
+            f"{rm_rounds} insert_rounds={ins_rounds} c10d={len(ca)} "
+            f"launches={json.dumps(r['launches'])} launch-class ops of the "
+            "first 4 segments (aten gather/scatter/sort, kernel calls): "
+            + json.dumps({k: count_round_launches(v)
+                          for k, v in list(seg.items())[:4]}))
+    budget = load_budget("unified")
+    want = budget["host_sync"].get("1x1@cuda", {}).get(
+        "programs", {}).get("apply_batch")
+    check(want is not None, "phase 13: the unified manifest has no "
+          "'1x1@cuda' host_sync section (audit --write-budgets --device "
+          "cuda)")
+    for kb, r in runs.items():
+        p13_check_syncs(kb, r, want, rm_rounds, ins_rounds)
+    # the torch run's peak against the manifest's formula at this size
+    m = b["m"]
+    lanes = max(1 << max(len(ev.edges) - 1, 0).bit_length(),
+                1 << max(len(ev.removals) - 1, 0).bit_length())
+    hwm = int(start["valid"].nonzero().max()) + 1
+    env = dict(n=m.n, d=1, d_e=1, d_v=1, cap=0, n_owned=m.n, n_pad=m.n,
+               hcap=0, lanes=lanes, local_cap=m.capacity,
+               window=plan_window(hwm, len(ev.edges), m.capacity))
+    formula = budget["memory"]["1x1"]["programs"]["apply_batch"]["peak"]
+    want_peak = eval_formula(formula, env)
+    ratio = b["peak"] / want_peak
+    log(f"phase 13 memory: torch peak {b['peak']} B, cuda peak {a['peak']}"
+        f" B; the formula at n={m.n} capacity={m.capacity} window="
+        f"{env['window']} lanes={lanes}: {want_peak} B; torch/formula "
+        f"{ratio:.4f}")
+    check(ratio <= P13_PEAK_MARGIN, f"phase 13: the torch peak is "
+          f"{ratio:.4f}x the formula (> {P13_PEAK_MARGIN})")
+    audit_launches = {k: a["launches"].get(k, 0) for k in MAIN_PATH_KERNELS}
+    del runs, a, b, m
+    # the dtype policy at full size: the narrowing check on fresh copies
+    for kb in ("cuda", "torch"):
+        r = p13_run(device, start, kb, ev, profile=False)
+        n_copies = sum(s.op in ("_to_copy", "copy_") for s in r["rec"].sites)
+        check(not r["rec"].narrowings, f"phase 13 {kb}: out-of-range "
+              f"narrowings {r['rec'].narrowings[:3]}")
+        log(f"phase 13 {kb}: dtype policy: no narrowing met a value outside "
+            f"its type ({n_copies} copies checked)")
+        del r
+    torch.cuda.empty_cache()
+    try:
+        text = child.communicate(timeout=P13_AUDIT_TIMEOUT)[0]
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    tail = "\n".join(text.splitlines()[-15:])
+    check(child.returncode == 0, f"phase 13: the card audit failed "
+          f"(exit {child.returncode}):\n{tail}")
+    report = json.loads(child_out.read_text())
+    log("phase 13 audit --engine unified,cuda,sharded --device cuda: "
+        + " ".join(f"{c['engine']}/{c['rule']}={c['status']}"
+                   for c in report["checks"]))
+    check(report["ok"], f"phase 13: the card audit found violations:\n{tail}")
+    check(not report["not_run"], f"phase 13: checks not run on the card: "
+          f"{report['not_run']}")
+    log(f"phase 13: audit_launches={json.dumps(audit_launches)} "
+        f"({time.perf_counter() - t_start:.1f} s)")
+    return audit_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3528,14 +3805,19 @@ def main() -> int:
     del snap, recorded
     phase_applications(m)
     seeds = gnn_seeds(m, GNN_SEEDS)  # phase 9's GraphSAGE seeds
+    del m
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: the auditor on the card, phase 4's batch ---------------
+    audit_launches = phase_audit(device, start4, stream)
     for r in rows:
         r["launches"] = launches[r["name"]]
         # the unified engine fuses the mcd_hi_dout / hi_dout passes into
         # the fused wrappers; these stats serve other callers
         r["status"] = ("on the main path" if r["name"] in MAIN_PATH_KERNELS
                        else "ported, off the main path")
-    del m
-    torch.cuda.empty_cache()
+        if r["name"] in MAIN_PATH_KERNELS:
+            r["audit_launches"] = audit_launches[r["name"]]
 
     # ---- phase 9: the GNN stack on the card -------------------------------
     phase_gnn(device, g, seeds)

@@ -57,7 +57,8 @@ of a fixpoint is the per-round budget); the port records at call time,
 once per collective actually issued, so a round records only the arm
 of the sparse exchange it took (the reference traces both and tags the
 fallback's ``branch="overflow"``). The layout's records carry the
-reference's op names and bytes (``psum``; ``gather_halo``,
+reference's op names and bytes (and its ``branch="overflow"`` tag on
+the dense fallback of the sparse exchange: ``psum``; ``gather_halo``,
 ``regather``, ``gather_stats``, ``psum_edge``, ``gather_frontier``,
 ``psum_scalar``, ``pmax_scalar``, and the ring's ``ppermute`` and
 ``pmin_scalar``); the table collectives of
@@ -87,9 +88,25 @@ class Traffic:
 
     op: str          # "psum" | "psum_table" | "pmax_scalar" | ...
     recv_bytes: int  # payload each participating rank receives
+    branch: str = ""  # "overflow": the sparse exchange's dense fallback
 
 
 _LOG: Optional[List[Traffic]] = None
+# the arm being issued: "" or "overflow" (``_fallback``), as the
+# reference tags the fallback cond arm it traces
+_BRANCH = ""
+
+
+@contextmanager
+def _fallback() -> Iterator[None]:
+    """Tag the collectives issued inside as the sparse exchange's dense
+    fallback (``Traffic.branch == "overflow"``)."""
+    global _BRANCH
+    outer, _BRANCH = _BRANCH, "overflow"
+    try:
+        yield
+    finally:
+        _BRANCH = outer
 
 
 @contextmanager
@@ -112,7 +129,7 @@ def record_traffic() -> Iterator[List[Traffic]]:
 
 def _note(op: str, recv_bytes: int) -> None:
     if _LOG is not None:
-        _LOG.append(Traffic(op, int(recv_bytes)))
+        _LOG.append(Traffic(op, int(recv_bytes), _BRANCH))
 
 
 _SHAPES: Optional[List[Tuple[str, int]]] = None
@@ -494,7 +511,8 @@ class HaloSession:
         payload, _ = self._sparse_payload(owned_mask)
         g = self._gather_frontier(payload)  # [d_v, cap + 1]
         if self._overflowed(g):
-            return self._mask_dense(owned_mask), True
+            with _fallback():
+                return self._mask_dense(owned_mask), True
         tgt = self._halo_targets(g[:, 1:].reshape(-1))
         mask = torch.zeros(self.halo_cap, dtype=torch.bool,
                            device=owned_mask.device)
@@ -526,8 +544,9 @@ class HaloSession:
         g_c = self._gather_frontier(cbuf[:cap])   # [d_v, cap]
         g_l = self._gather_frontier(lbuf[:cap])   # [d_v, cap]
         if self._overflowed(g_i):
-            return (self.gather_values(core_own),
-                    self.gather_values(label_own), True)
+            with _fallback():
+                return (self.gather_values(core_own),
+                        self.gather_values(label_own), True)
         tgt = self._halo_targets(g_i[:, 1:].reshape(-1))
         return (self._set_halo(core_h, tgt, g_c.reshape(-1)),
                 self._set_halo(label_h, tgt, g_l.reshape(-1)), False)

@@ -37,7 +37,10 @@ def test_import_every_module_without_jax_or_repro():
         for new in ("optim.adamw", "optim.compression", "optim.params",
                     "optim.schedule", "train.checkpoint", "train.fault",
                     "train.loop", "launch.steps", "launch.train",
-                    "parallel", "parallel.sharding", "launch.dryrun"):
+                    "parallel", "parallel.sharding", "launch.dryrun",
+                    "analysis", "analysis.walker", "analysis.programs",
+                    "analysis.rules", "analysis.memory", "analysis.hostlint",
+                    "analysis.audit"):
             assert "repro_torch." + new in names, new
         print("ok", len(names))
     """)
