@@ -7,13 +7,13 @@ unweighted and weighted, on the host engine, and on the sharded engine
 (replicated and range-sharded vertex state) over a world of one NCCL
 rank — at full width, serves the GNN stack (PNA, GIN, DimeNet,
 NequIP) at ``full()`` width on the GNN cells, serves the LM stack
-(qwen2-7b with every prefill attention on the attention kernel, and
-deepseek-v2-lite-16b) at ``full()`` width and depth, trains on the
-card (qwen2-7b at full width, the dynamic-graph GNN trainer whose
-maintainer launches the core-maintenance kernels between steps, and
-``launch/steps.py``'s train cells), runs the sharded paths
-(``parallel/sharding.py``'s placements, the LM and GNN pins, the pod
-dry-run) over a world of one NCCL rank, and audits the main path's
+(qwen2-7b, qwen3-8b and yi-34b with every prefill attention on the
+attention kernel, and deepseek-v2-lite-16b) at ``full()`` width and
+depth, trains on the card (qwen2-7b at full width, the dynamic-graph
+GNN trainer whose maintainer launches the core-maintenance kernels
+between steps, and ``launch/steps.py``'s train cells), runs the sharded
+paths (``parallel/sharding.py``'s placements, the LM and GNN pins, the
+pod dry-run) over a world of one NCCL rank, and audits the main path's
 batch program on both kernel backends (``repro_torch.analysis``).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
@@ -158,24 +158,28 @@ Phases:
      (``ogb_products``: two card forwards); NequIP under a seeded
      rotation (``phase_gnn``'s docstring). One line a model and cell:
      wall, peak memory, nodes, edges, triplets.
- 10. (run after phase 9, before 4b) the LM stack at ``full()`` width and
-     depth, TF32 off, random weights drawn on the card from seeded
-     generators, walls as CUDA events (the median of 5 after a warm-up,
-     ``max_memory_allocated`` reset first), each model freed before the
-     next (``phase_lm``'s docstring): qwen2-7b in bfloat16 on the
-     kernel path (``kernel_backend="cuda"``: ``flash_attention`` once a
-     layer a prefill) against the plain path and a float32 copy at
-     1 x 4,096, with a teacher-forced decode; ``prefill_32k`` cut to
-     batch 1 (against the reference's streaming path on 4 layers);
-     ``decode_32k`` cut to batch 16 and ``long_500k`` at batch 1, 64
-     greedy steps each; a 2-layer cut against the CPU; then
-     deepseek-v2-lite-16b (MLA + MoE, the plain path) at 1 x 4,096 with
-     16 decode steps, and its 2-layer cut against the CPU in float32.
+ 10. (run after phase 2, on a card nothing else holds) the LM stack at
+     ``full()`` width and depth, TF32 off, random weights drawn on the
+     card from seeded generators, walls as CUDA events (the median of 5
+     after a warm-up, ``max_memory_allocated`` reset first), each model
+     started on a freed card, under 1 GB allocated (``phase_lm``'s
+     docstring): qwen2-7b in bfloat16 on the kernel path
+     (``kernel_backend="cuda"``: ``flash_attention`` once a layer a
+     prefill) against the plain path and float32 at 1 x 4,096, with a
+     teacher-forced decode; ``prefill_32k`` cut to batch 1 (against the
+     reference's streaming path on 4 layers); ``decode_32k`` cut to
+     batch 16 and ``long_500k`` at batch 1, 64 greedy steps each; a
+     2-layer cut against the CPU; deepseek-v2-lite-16b (MLA + MoE, the
+     plain path) at 1 x 4,096 with 16 decode steps, and its 2-layer cut
+     against the CPU in float32; qwen3-8b (``qk_norm``) as qwen2-7b at
+     1 x 4,096 and its 2-layer cut; yi-34b, all 60 layers on one card,
+     1 x 4,096 on both paths, 16 decode steps, its peak beside the
+     card's memory, and its 2-layer cut.
      One line a part: wall, peak memory, tokens, launches. The
      ``flash_attention`` rows gain ``lm_launches`` (phase 10's), and a
      row times the kernel at 1 x 32,768 on layer 0's q, k, v.
 
- 11. (run after phase 10, before 4b) training on the card, TF32 off
+ 11. (run after phase 9, before 4b) training on the card, TF32 off
      (``phase_train``): (a) qwen2-7b at ``full()`` width cut to 4 of 28
      layers (2,022,229,504 parameters; 28 would hold ~91 GB of weights,
      gradients and moments), bfloat16, ``run_training`` for 5 steps of
@@ -328,6 +332,12 @@ LM_DECODE_STEPS = 64
 LM_CPU_LAYERS = 2         # the card-vs-CPU cut
 LM_CPU_PROMPT = 256
 LM_MOE_STEPS = 16
+LM_YI_STEPS = 16          # yi-34b's greedy decode steps
+LM_F32_CHUNK = 1024       # the float32 yardstick's attention chunk (yi-34b)
+# full() parameters, norm scales and biases included (bf16 bytes: twice
+# these; no float32 router)
+LM_FULL_PARAMS = {"qwen2-7b": 7_615_616_512, "qwen3-8b": 8_190_735_360,
+                  "yi-34b": 34_388_917_248}
 # phase 11: qwen2-7b full() width cut to 4 layers for training (PERF.md
 # §4: ~24 GB of bf16 weights and gradients and float32 moments), the
 # card-vs-CPU step at 1 layer, the dynamic-graph GNN trainer's scale,
@@ -2148,25 +2158,208 @@ def decode_bytes(model, cache) -> tuple:
     return bound, plain
 
 
+def lm_part(name, ms, peak, n_tok, launches, extra="") -> None:
+    log(f"phase 10 {name}: wall_ms={ms:.4f} peak_bytes={peak} "
+        f"tokens={n_tok} launches={launches}{extra}")
+
+
+def lm_free(name) -> None:
+    """Each of phase 10's models starts from a freed card: the previous
+    one deleted by the caller, then collected and the cache emptied;
+    under 1 GB may stay allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"phase 10 {name}: memory_allocated={held} before its weights")
+    check(held < 1e9, f"phase 10 {name}: {held} B still allocated")
+
+
+def lm_sized(name, model, t0) -> None:
+    """Print the model's parameters and bytes; both must be the reckoned
+    ``LM_FULL_PARAMS`` (bf16: two bytes each), and the model must
+    resolve to the kernel path."""
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"phase 10 {name} full(): n_params={n} bytes={nbytes} "
+        f"kernel_backend={model.kernel_backend} "
+        f"init {time.perf_counter() - t0:.1f} s")
+    check(n == LM_FULL_PARAMS[name] and nbytes == 2 * n,
+          f"phase 10 {name}: {n} parameters, {nbytes} B (expected "
+          f"{LM_FULL_PARAMS[name]}, twice as many bytes)")
+    check(model.kernel_backend == "cuda", f"phase 10: {name} does not "
+          "resolve to the kernel path on the card")
+
+
+def lm_prefill_f32(cfg, model, tokens, last: int) -> tuple:
+    """The float32 yardstick: what ``T.prefill`` computes on
+    ``model.converted(torch.float32)`` (the plain path, its attention
+    streamed in ``LM_F32_CHUNK``-key chunks where they divide the
+    length), with one layer's weights cast at a time, so no float32 copy
+    of the model is made. Returns the logits of the last ``last``
+    positions (``[B, last, vocab]``) and the cache."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                attn_chunk=LM_F32_CHUNK)
+    x = T._embed(model, tokens).float()
+    pos = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    cache = {}
+    for i in range(cfg.n_layers):
+        lp = {k: v.float() for k, v in T._layer(model, i).items()}
+        x, _, lc = T._block(cfg32, lp, x, pos, "torch")
+        for k, v in lc.items():
+            if k not in cache:
+                cache[k] = v.new_empty((cfg.n_layers,) + tuple(v.shape))
+            cache[k][i] = v
+        del lp, lc
+    return T._logits(cfg32, model, x[:, -last:]), cache
+
+
+def lm_prefill_4k(name, cfg, model, toks) -> None:
+    """Phase 10's 1 x ``LM_PREFILL`` prefill of a GQA model (``toks``: the
+    prompt, then ``LM_TF_STEPS`` more tokens) on the kernel path and on
+    the plain path from the same weights, both timed: the kernel path
+    launches ``flash_attention[causal,bf16,d128]`` exactly once a layer
+    and the plain path none; the kernel path's relative L2 error against
+    float32 (``lm_prefill_f32``; last logits, each layer's K and V) at
+    most 1.5x the plain bf16 path's; ``forward`` on the kernel path once
+    a layer, its logits at the prompt's end those of prefill; the
+    teacher-forced decode: the kernel prefill's cache widened by
+    ``LM_TF_STEPS`` slots, a ``decode_step`` on each next token against
+    ``forward``'s logits there, at most 3x the bf16 forward's own error
+    against float32 (two bf16 computations of one function, each off by
+    about that much)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    key = FA.launch_key(True, torch.bfloat16, 128)
+    prompt = toks[:, :LM_PREFILL]
+    n0 = FA.LAUNCHES[key]
+    last_k, cache_k = T.prefill(cfg, model, prompt, "cuda")
+    torch.cuda.synchronize()
+    check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+          f"phase 10 {name} prefill 4k: {FA.LAUNCHES[key] - n0} kernel "
+          f"launches, not one a layer ({cfg.n_layers})")
+    n0 = sum(FA.LAUNCHES.values())
+    last_p, cache_p = T.prefill(cfg, model, prompt, "torch")
+    torch.cuda.synchronize()
+    check(sum(FA.LAUNCHES.values()) == n0,
+          f"phase 10 {name}: the plain path launched a kernel")
+    for path, n in (("kernel", cfg.n_layers), ("plain", 0)):
+        ms, peak = gnn_time(lambda: T.prefill(
+            cfg, model, prompt, "cuda" if n else "torch"))[:2]
+        lm_part(f"{name} prefill 1x{LM_PREFILL} {path}", ms, peak,
+                LM_PREFILL, n, f" tokens_per_s={LM_PREFILL / ms * 1e3:.1f}")
+    t0 = time.perf_counter()
+    logits_f, cache_f = lm_prefill_f32(cfg, model, toks, LM_TF_STEPS + 1)
+    last_f, want_f = logits_f[:, 0], logits_f[0, 1:]
+    cache_f = {k: v[:, :, :LM_PREFILL] for k, v in cache_f.items()}
+    torch.cuda.synchronize()
+    log(f"phase 10 {name} float32 yardstick (the plain path in float32, "
+        f"a layer's weights cast at a time, no float32 copy of the model):"
+        f" {toks.shape[1]} tokens in {time.perf_counter() - t0:.1f} s")
+    lm_within(f"{name} prefill 4k kernel vs float32",
+              lm_errors(last_k, cache_k, last_f, cache_f),
+              lm_errors(last_p, cache_p, last_f, cache_f), 1.5)
+    del cache_p, cache_f, last_p, last_f, logits_f
+    n0 = FA.LAUNCHES[key]
+    logits_b, _ = T.forward(cfg, model, toks, "cuda")
+    check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+          f"phase 10 {name} forward: not one kernel launch a layer")
+    fwd_b = logits_b[0, LM_PREFILL:].clone()
+    check(lm_rel(last_k, logits_b[0, LM_PREFILL - 1:LM_PREFILL]) < 1e-2,
+          f"phase 10 {name}: prefill's last logits != forward's")
+    del logits_b
+    cache = T.widen_cache(cache_k, LM_PREFILL + LM_TF_STEPS)
+    del cache_k
+    dec = []
+    for i in range(LM_TF_STEPS):
+        lg, cache = T.decode_step(cfg, model, cache, toks[:, LM_PREFILL + i])
+        dec.append(lg[0])
+    dec = torch.stack(dec)
+    check(int(cache["length"]) == LM_PREFILL + LM_TF_STEPS,
+          f"phase 10 {name}: cache length after the teacher-forced decode")
+    err_fwd, err_dec = lm_rel(fwd_b, want_f), lm_rel(dec, fwd_b)
+    log(f"phase 10 {name} teacher-forced decode: {LM_TF_STEPS} steps after "
+        f"the kernel prefill, relative L2 to forward's logits {err_dec} "
+        f"(limit 3x {err_fwd}, the bf16 forward's error against "
+        f"float32; the decode's own {lm_rel(dec, want_f)}); argmax "
+        f"agrees at {int((dec.argmax(-1) == fwd_b.argmax(-1)).sum())}"
+        f"/{LM_TF_STEPS}")
+    check(err_dec <= 3 * err_fwd, f"phase 10 {name} teacher-forced decode: "
+          f"{err_dec} over 3x {err_fwd}")
+
+
+def lm_cpu_check(name, cut, p) -> None:
+    """``cut``, the first ``LM_CPU_LAYERS`` layers at full width (bf16, on
+    the card), on the prompt ``p``: the card against the CPU's plain
+    path, in float32 (the f32 kernel; relative L2 at most 1e-4 on the
+    logits and each layer's cache) and in bfloat16 (the card's error
+    against the CPU's float32 at most 1.5x the CPU bf16 plain path's);
+    one kernel launch a layer in each dtype."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    key32 = FA.launch_key(True, torch.float32, 128)
+    cpu32 = cut.converted(torch.float32, "cpu")
+    truth = T.prefill(cpu32.cfg, cpu32, p.cpu())
+    del cpu32
+    cpu16 = cut.converted(device="cpu")
+    plain16 = T.prefill(cpu16.cfg, cpu16, p.cpu())
+    del cpu16
+    n0, n32 = sum(FA.LAUNCHES.values()), FA.LAUNCHES[key32]
+    card16 = T.prefill(cut.cfg, cut, p, "cuda")
+    card32_m = cut.converted(torch.float32)
+    card32 = T.prefill(card32_m.cfg, card32_m, p, "cuda")
+    check(FA.LAUNCHES[key32] - n32 == LM_CPU_LAYERS
+          and sum(FA.LAUNCHES.values()) - n0 == 2 * LM_CPU_LAYERS,
+          f"phase 10 {name} card vs CPU: not one launch a layer in each "
+          "dtype")
+    del card32_m
+    errs32 = lm_errors(*card32, *truth)
+    log(f"phase 10 {name} {LM_CPU_LAYERS} layers 1x{p.shape[1]} float32 "
+        f"card (kernel) vs CPU (plain): relative L2 {errs32} (limit 1e-4)")
+    check(max(errs32) <= 1e-4, f"phase 10 {name} card vs CPU float32")
+    lm_within(f"{name} {LM_CPU_LAYERS} layers 1x{p.shape[1]} bf16 card "
+              "(kernel) vs CPU float32", lm_errors(*card16, *truth),
+              lm_errors(*plain16, *truth), 1.5)
+    log(f"phase 10 {name} card vs CPU: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_lm(device) -> tuple:
     """Phase 10: the LM stack at ``full()`` width and depth on the card,
     bfloat16 unless named, TF32 off, random weights drawn on the card
     (seeded ``torch.Generator``s), tokens from ``default_rng(0)``.
 
-    (a) qwen2-7b (7,615,487,488 parameters, 15.23 GB):
-      * 1 x 4,096 prefill on the kernel path and on the plain path (the
-        reference's ``_attend``) from the same weights, and the plain
-        path on a float32 copy: the kernel path launches
+    Each model starts from a freed card (``lm_free``: under 1 GB
+    allocated) and its parameters and bytes are checked against the
+    reckoning (``lm_sized``, ``LM_FULL_PARAMS``).
+
+    (a) qwen2-7b (7,615,616,512 parameters, 15.23 GB):
+      * ``lm_prefill_4k``: 1 x 4,096 prefill on the kernel path and on
+        the plain path (the reference's ``_attend``) from the same
+        weights, both timed, and the plain path in float32 a layer at a
+        time (``lm_prefill_f32``): the kernel path launches
         ``flash_attention[causal,bf16,d128]`` exactly 28 times (once a
         layer) and the plain path none; the kernel path's relative L2
         error against float32 (last logits, and each layer's K and V
-        cache) at most 1.5x the plain bf16 path's;
-      * teacher-forced decode: the kernel prefill's cache widened by 8
-        slots, 8 ``decode_step``s on the next 8 tokens against
-        ``forward``'s logits (kernel path) at those positions: their
-        relative L2 difference at most 3x the bf16 forward's own error
-        against the float32 forward there (two bf16 computations of one
-        function, each off by about that much);
+        cache) at most 1.5x the plain bf16 path's; teacher-forced
+        decode: the kernel prefill's cache widened by 8 slots, 8
+        ``decode_step``s on the next 8 tokens against ``forward``'s
+        logits (kernel path) at those positions: their relative L2
+        difference at most 3x the bf16 forward's own error against the
+        float32 forward there (two bf16 computations of one function,
+        each off by about that much);
       * ``prefill_32k`` cut to batch 1 (32 -> 1): 1 x 32,768 on the
         kernel, timed; on the first 4 layers (a copy) the kernel path
         against the reference's streaming path (``attn_chunk=2048``,
@@ -2181,23 +2374,37 @@ def phase_lm(device) -> tuple:
         64 greedy steps;
       * ``long_500k`` at batch 1: a seeded random cache of 524,288
         slots (30.06 GB) at length 524,224, 64 greedy steps;
-      * the first 2 layers (a copy) at full width on 1 x 256: the card
-        against the CPU's plain path, in float32 (the f32 kernel;
-        relative L2 at most 1e-4 on the logits and each layer's cache)
-        and in bfloat16 (the card's error against the CPU's float32 at
-        most 1.5x the CPU bf16 plain path's).
+      * ``lm_cpu_check``: the first 2 layers (a copy) at full width on
+        1 x 256: the card against the CPU's plain path, in float32 (the
+        f32 kernel; relative L2 at most 1e-4 on the logits and each
+        layer's cache) and in bfloat16 (the card's error against the
+        CPU's float32 at most 1.5x the CPU bf16 plain path's).
     (b) deepseek-v2-lite-16b (16,210,311,168 parameters, 32.42 GB; MLA
       + 64-expert MoE, the plain path, no kernel): 1 x 4,096 prefill
       (expert capacity 481) and ``forward`` (finite, aux loss > 0), 16
       greedy decode steps; its first 2 layers in float32 against the
       CPU at 1e-4 (float32: a bf16 rounding can flip a token's experts).
+    (c) qwen3-8b (8,190,735,360 parameters, 16.38 GB; ``qk_norm``: two
+      RMSNorms over ``d_head`` = 128 between the projections and RoPE):
+      ``lm_prefill_4k`` (36 launches a prefill) and ``lm_cpu_check``.
+    (d) yi-34b, the whole model (34,388,917,248 parameters, 68.78 GB; 60
+      layers, 56 query heads over 8 KV heads): a 1 x 4,096 prefill on
+      the kernel path (exactly 60 launches), timed, its peak
+      ``max_memory_allocated`` beside the card's ``total_memory``; 16
+      greedy decode steps from its cache; the plain path's prefill from
+      the same weights (its unchunked ``[1, 56, 4096, 4096]`` float32
+      scores, or ``attn_chunk=2048`` where they do not fit, as printed),
+      both held to ``lm_prefill_f32`` as in ``lm_prefill_4k`` (the
+      caches compared on the host); ``lm_cpu_check``.
 
     Returns phase 10's launches by ``flash_attention`` counter (its
     counted path) and the ``kernels`` row of the kernel at 1 x 32,768."""
     import dataclasses
+    import gc
 
     import torch
-    from repro_torch.configs import deepseek_v2_lite_16b, qwen2_7b
+    from repro_torch.configs import (deepseek_v2_lite_16b, qwen2_7b,
+                                     qwen3_8b, yi_34b)
     from repro_torch.configs.common import LM_SHAPES
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import transformer as T
@@ -2212,89 +2419,21 @@ def phase_lm(device) -> tuple:
         return torch.from_numpy(rng.integers(0, vocab, (1, n)).astype(
             np.int32)).to(device)
 
-    def part(name, ms, peak, n_tok, launches, extra=""):
-        log(f"phase 10 {name}: wall_ms={ms:.4f} peak_bytes={peak} "
-            f"tokens={n_tok} launches={launches}{extra}")
-
     def launched():
         return FA.LAUNCHES[key] + FA.LAUNCHES[key32]
 
     FA.reset_launches()
+    lm_free("qwen2-7b")
     cfg = qwen2_7b.full()
     t0 = time.perf_counter()
     model = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                           device=device)
     sync(device)
-    log(f"phase 10 qwen2-7b full(): n_params={cfg.n_params} "
-        f"bytes={sum(p.numel() * p.element_size() for p in model.parameters())}"
-        f" kernel_backend={model.kernel_backend} "
-        f"init {time.perf_counter() - t0:.1f} s")
-    check(model.kernel_backend == "cuda", "phase 10: qwen2-7b does not "
-          "resolve to the kernel path on the card")
+    lm_sized("qwen2-7b", model, t0)
     toks = tokens(LM_PREFILL + LM_TF_STEPS, cfg.vocab)
-    prompt = toks[:, :LM_PREFILL]
     with torch.no_grad():
         # ---- (a) 1 x 4,096: kernel, plain, float32 ----------------------
-        n0 = FA.LAUNCHES[key]
-        last_k, cache_k = T.prefill(cfg, model, prompt, "cuda")
-        sync(device)
-        check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
-              f"phase 10 prefill 4k: {FA.LAUNCHES[key] - n0} kernel "
-              f"launches, not one a layer ({cfg.n_layers})")
-        n0 = launched()
-        last_p, cache_p = T.prefill(cfg, model, prompt, "torch")
-        sync(device)
-        check(launched() == n0, "phase 10: the plain path launched a kernel")
-        ms_k, peak_k, _, _ = gnn_time(
-            lambda: T.prefill(cfg, model, prompt, "cuda"))
-        part(f"prefill 1x{LM_PREFILL} kernel", ms_k, peak_k, LM_PREFILL,
-             cfg.n_layers, f" tokens_per_s={LM_PREFILL / ms_k * 1e3:.1f}")
-        ms_p, peak_p, _, _ = gnn_time(
-            lambda: T.prefill(cfg, model, prompt, "torch"))
-        part(f"prefill 1x{LM_PREFILL} plain", ms_p, peak_p, LM_PREFILL, 0,
-             f" tokens_per_s={LM_PREFILL / ms_p * 1e3:.1f}")
-        t0 = time.perf_counter()
-        m32 = model.converted(torch.float32)
-        last_f, cache_f = T.prefill(m32.cfg, m32, prompt, "torch")
-        logits_f, _ = T.forward(m32.cfg, m32, toks, "torch")
-        want_f = logits_f[0, LM_PREFILL:].clone()
-        del m32, logits_f
-        sync(device)
-        log(f"phase 10 float32 copy: prefill and forward of "
-            f"{LM_PREFILL + LM_TF_STEPS} tokens in "
-            f"{time.perf_counter() - t0:.1f} s")
-        lm_within("prefill 4k kernel vs float32",
-                  lm_errors(last_k, cache_k, last_f, cache_f),
-                  lm_errors(last_p, cache_p, last_f, cache_f), 1.5)
-        del cache_p, cache_f, last_p, last_f
-        n0 = FA.LAUNCHES[key]
-        logits_b, _ = T.forward(cfg, model, toks, "cuda")
-        check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
-              "phase 10 forward: not one kernel launch a layer")
-        fwd_b = logits_b[0, LM_PREFILL:].clone()
-        check(lm_rel(last_k, logits_b[0, LM_PREFILL - 1:LM_PREFILL]) < 1e-2,
-              "phase 10: prefill's last logits != forward's")
-        del logits_b
-        cache = T.widen_cache(cache_k, LM_PREFILL + LM_TF_STEPS)
-        del cache_k
-        dec = []
-        for i in range(LM_TF_STEPS):
-            lg, cache = T.decode_step(cfg, model, cache,
-                                      toks[:, LM_PREFILL + i])
-            dec.append(lg[0])
-        dec = torch.stack(dec)
-        check(int(cache["length"]) == LM_PREFILL + LM_TF_STEPS,
-              "phase 10: cache length after the teacher-forced decode")
-        err_fwd, err_dec = lm_rel(fwd_b, want_f), lm_rel(dec, fwd_b)
-        log(f"phase 10 teacher-forced decode: {LM_TF_STEPS} steps after "
-            f"the kernel prefill, relative L2 to forward's logits {err_dec} "
-            f"(limit 3x {err_fwd}, the bf16 forward's error against "
-            f"float32; the decode's own {lm_rel(dec, want_f)}); argmax "
-            f"agrees at {int((dec.argmax(-1) == fwd_b.argmax(-1)).sum())}"
-            f"/{LM_TF_STEPS}")
-        check(err_dec <= 3 * err_fwd, f"phase 10 teacher-forced decode: "
-              f"{err_dec} over 3x {err_fwd}")
-        del cache, dec, fwd_b, want_f, last_k
+        lm_prefill_4k("qwen2-7b", cfg, model, toks)
         torch.cuda.empty_cache()
 
         # ---- (a) prefill_32k cut to batch 1 ------------------------------
@@ -2313,10 +2452,11 @@ def phase_lm(device) -> tuple:
             + 2 * cfg.vocab * cfg.d_model
         att = 4 * cfg.n_heads * cfg.d_head * s32 * (s32 + 1) // 2 \
             * cfg.n_layers
-        part(f"prefill_32k 1x{s32} kernel (batch 32 -> 1)", ms32, peak32,
-             s32, cfg.n_layers, f" tokens_per_s={s32 / ms32 * 1e3:.1f} "
-             f"flops={lin + att} bound_ms={(lin + att) / BF16_PEAK * 1e3:.4f}")
-        del last32
+        lm_part(f"prefill_32k 1x{s32} kernel (batch 32 -> 1)", ms32,
+                peak32, s32, cfg.n_layers,
+                f" tokens_per_s={s32 / ms32 * 1e3:.1f} flops={lin + att} "
+                f"bound_ms={(lin + att) / BF16_PEAK * 1e3:.4f}")
+        del last32, _  # _: the last timed call's output, its 1.9 GB cache
         # the first layers against the reference's streaming path
         t0 = time.perf_counter()
         cut = model.converted(n_layers=LM_CHUNK_LAYERS)
@@ -2385,7 +2525,7 @@ def phase_lm(device) -> tuple:
         log(f"phase 10 {row['name']}: {row['tflops']:.1f} TFLOP/s, "
             f"{row['share_of_bound']:.3f} of the bound")
         FA.LAUNCHES.update(path)  # the timed launches are not the path's
-        del q, k, v, qh, kh, vh, got, want
+        del lp0, q, k, v, qh, kh, vh, got, want
         torch.cuda.empty_cache()
 
         # ---- (a) decode_32k cut to batch 16 -------------------------------
@@ -2412,13 +2552,15 @@ def phase_lm(device) -> tuple:
               and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
               "phase 10 decode_32k: length, logits or tokens")
         bound, plain_b = decode_bytes(model, cache_d)
-        part(f"decode_32k batch {LM_DECODE_BATCH} (128 -> "
-             f"{LM_DECODE_BATCH}), cache {t_cache}, {LM_DECODE_STEPS} steps "
-             "(ms a step)", ms_d, peak_d, LM_DECODE_BATCH * LM_DECODE_STEPS,
-             0, f" tokens_per_s={LM_DECODE_BATCH / ms_d * 1e3:.1f} "
-             f"bound_bytes={bound} bound_ms={bound / HBM_BYTES_PER_S * 1e3:.4f}"
-             f" plain_bytes={plain_b} "
-             f"plain_bytes_ms={plain_b / HBM_BYTES_PER_S * 1e3:.4f}")
+        lm_part(f"decode_32k batch {LM_DECODE_BATCH} (128 -> "
+                f"{LM_DECODE_BATCH}), cache {t_cache}, {LM_DECODE_STEPS} "
+                "steps (ms a step)", ms_d, peak_d,
+                LM_DECODE_BATCH * LM_DECODE_STEPS, 0,
+                f" tokens_per_s={LM_DECODE_BATCH / ms_d * 1e3:.1f} "
+                f"bound_bytes={bound} "
+                f"bound_ms={bound / HBM_BYTES_PER_S * 1e3:.4f}"
+                f" plain_bytes={plain_b} "
+                f"plain_bytes_ms={plain_b / HBM_BYTES_PER_S * 1e3:.4f}")
         del cache_d, last_d, lg
         torch.cuda.empty_cache()
 
@@ -2439,49 +2581,27 @@ def phase_lm(device) -> tuple:
               and bool(torch.isfinite(lg).all()),
               "phase 10 long_500k: length or logits")
         bound, plain_b = decode_bytes(model, cache_l)
-        part(f"long_500k batch 1, cache {t_long} "
-             f"({sum(cache_l[k].numel() * 2 for k in ('k', 'v'))} B) from "
-             f"length {t_long - LM_DECODE_STEPS}, {LM_DECODE_STEPS} steps "
-             "(ms a step)", ms_l, peak_l, LM_DECODE_STEPS, 0,
-             f" tokens_per_s={1 / ms_l * 1e3:.1f} bound_bytes={bound} "
-             f"bound_ms={bound / HBM_BYTES_PER_S * 1e3:.4f} "
-             f"plain_bytes={plain_b} "
-             f"plain_bytes_ms={plain_b / HBM_BYTES_PER_S * 1e3:.4f}")
+        lm_part(f"long_500k batch 1, cache {t_long} "
+                f"({sum(cache_l[k].numel() * 2 for k in ('k', 'v'))} B) from "
+                f"length {t_long - LM_DECODE_STEPS}, {LM_DECODE_STEPS} steps "
+                "(ms a step)", ms_l, peak_l, LM_DECODE_STEPS, 0,
+                f" tokens_per_s={1 / ms_l * 1e3:.1f} bound_bytes={bound} "
+                f"bound_ms={bound / HBM_BYTES_PER_S * 1e3:.4f} "
+                f"plain_bytes={plain_b} "
+                f"plain_bytes_ms={plain_b / HBM_BYTES_PER_S * 1e3:.4f}")
         del cache_l, lg
         torch.cuda.empty_cache()
 
         # ---- (a) the first 2 layers, card against CPU ---------------------
-        t0 = time.perf_counter()
         cut = model.converted(n_layers=LM_CPU_LAYERS)
         del model
         torch.cuda.empty_cache()
-        p = toks[:, :LM_CPU_PROMPT]
-        cpu32 = cut.converted(torch.float32, "cpu")
-        truth = T.prefill(cpu32.cfg, cpu32, p.cpu())
-        del cpu32
-        cpu16 = cut.converted(device="cpu")
-        plain16 = T.prefill(cpu16.cfg, cpu16, p.cpu())
-        del cpu16
-        n0 = launched()
-        card16 = T.prefill(cut.cfg, cut, p, "cuda")
-        card32_m = cut.converted(torch.float32)
-        card32 = T.prefill(card32_m.cfg, card32_m, p, "cuda")
-        check(FA.LAUNCHES[key32] > 0 and launched() - n0
-              == 2 * LM_CPU_LAYERS, "phase 10 card vs CPU: not one launch "
-              "a layer in each dtype")
-        del card32_m, cut
-        errs32 = lm_errors(*card32, *truth)
-        log(f"phase 10 {LM_CPU_LAYERS} layers 1x{LM_CPU_PROMPT} float32 card "
-            f"(kernel) vs CPU (plain): relative L2 {errs32} (limit 1e-4)")
-        check(max(errs32) <= 1e-4, "phase 10 card vs CPU float32")
-        lm_within(f"{LM_CPU_LAYERS} layers 1x{LM_CPU_PROMPT} bf16 card "
-                  "(kernel) vs CPU float32", lm_errors(*card16, *truth),
-                  lm_errors(*plain16, *truth), 1.5)
-        log(f"phase 10 card vs CPU: {time.perf_counter() - t0:.1f} s")
-        del truth, plain16, card16, card32
+        lm_cpu_check("qwen2-7b", cut, toks[:, :LM_CPU_PROMPT])
+        del cut
         torch.cuda.empty_cache()
 
         # ---- (b) deepseek-v2-lite-16b ------------------------------------
+        lm_free("deepseek-v2-lite-16b")
         cfg_d = deepseek_v2_lite_16b.full()
         t0 = time.perf_counter()
         md = T.init_params(cfg_d, torch.Generator(device=device).manual_seed(
@@ -2504,10 +2624,11 @@ def phase_lm(device) -> tuple:
         check(bool(torch.isfinite(last_m).all())
               and bool(torch.isfinite(logits_m).all()) and float(aux) > 0,
               "phase 10 deepseek-v2-lite-16b: logits not finite or aux <= 0")
-        part(f"deepseek-v2-lite-16b prefill 1x{LM_PREFILL} (expert capacity "
-             f"{cap})", ms_m, peak_m, LM_PREFILL, 0,
-             f" tokens_per_s={LM_PREFILL / ms_m * 1e3:.1f} aux={float(aux)} "
-             f"last logits vs forward's {lm_rel(last_m, logits_m[:, -1])}")
+        lm_part(f"deepseek-v2-lite-16b prefill 1x{LM_PREFILL} (expert "
+                f"capacity {cap})", ms_m, peak_m, LM_PREFILL, 0,
+                f" tokens_per_s={LM_PREFILL / ms_m * 1e3:.1f} "
+                f"aux={float(aux)} "
+                f"last logits vs forward's {lm_rel(last_m, logits_m[:, -1])}")
         del logits_m
         cache_m = T.widen_cache(cache_m, LM_PREFILL + LM_MOE_STEPS)
         tok = torch.argmax(last_m, dim=-1).to(torch.int32)
@@ -2517,10 +2638,10 @@ def phase_lm(device) -> tuple:
         check(int(cache_m["length"]) == LM_PREFILL + LM_MOE_STEPS
               and bool(torch.isfinite(lg).all()),
               "phase 10 deepseek decode: length or logits")
-        part(f"deepseek-v2-lite-16b decode batch 1, {LM_MOE_STEPS} steps "
-             "(ms a step)", ms_md, peak_md, LM_MOE_STEPS, 0,
-             f" tokens_per_s={1 / ms_md * 1e3:.1f}")
-        del cache_m, lg
+        lm_part(f"deepseek-v2-lite-16b decode batch 1, {LM_MOE_STEPS} steps "
+                "(ms a step)", ms_md, peak_md, LM_MOE_STEPS, 0,
+                f" tokens_per_s={1 / ms_md * 1e3:.1f}")
+        del cache_m, lg, _
         cut = md.converted(torch.float32, n_layers=LM_CPU_LAYERS)
         del md
         torch.cuda.empty_cache()
@@ -2534,6 +2655,101 @@ def phase_lm(device) -> tuple:
             "(limit 1e-4)")
         check(max(errs) <= 1e-4, "phase 10 deepseek card vs CPU float32")
         del cut, cpu, card, want
+        torch.cuda.empty_cache()
+
+        # ---- (c) qwen3-8b: qk_norm, 36 layers ------------------------------
+        lm_free("qwen3-8b")
+        cfg = qwen3_8b.full()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0), device=device)
+        sync(device)
+        lm_sized("qwen3-8b", model, t0)
+        toks = tokens(LM_PREFILL + LM_TF_STEPS, cfg.vocab)
+        lm_prefill_4k("qwen3-8b", cfg, model, toks)
+        cut = model.converted(n_layers=LM_CPU_LAYERS)
+        del model
+        torch.cuda.empty_cache()
+        lm_cpu_check("qwen3-8b", cut, toks[:, :LM_CPU_PROMPT])
+        del cut
+
+        # ---- (d) yi-34b: the whole model, 60 layers, on one card ---------
+        lm_free("yi-34b")
+        cfg = yi_34b.full()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0), device=device)
+        sync(device)
+        lm_sized("yi-34b", model, t0)
+        toks = tokens(LM_PREFILL, cfg.vocab)
+        total = torch.cuda.get_device_properties(0).total_memory
+        n0 = FA.LAUNCHES[key]
+        last_k, cache_k = T.prefill(cfg, model, toks, "cuda")
+        sync(device)
+        check(FA.LAUNCHES[key] - n0 == cfg.n_layers,
+              f"phase 10 yi-34b prefill: {FA.LAUNCHES[key] - n0} kernel "
+              f"launches, not one a layer ({cfg.n_layers})")
+        ms_y, peak_y = gnn_time(
+            lambda: T.prefill(cfg, model, toks, "cuda"))[:2]
+        lm_part(f"yi-34b prefill 1x{LM_PREFILL} kernel", ms_y, peak_y,
+                LM_PREFILL, cfg.n_layers,
+                f" tokens_per_s={LM_PREFILL / ms_y * 1e3:.1f} "
+                f"total_memory={total} peak_share={peak_y / total:.4f}")
+        cache = T.widen_cache(cache_k, LM_PREFILL + LM_YI_STEPS)
+        tok = torch.argmax(last_k, dim=-1).to(torch.int32)
+        n0 = launched()
+        ms_d, peak_d, lg, gen, cache = lm_decode(cfg, model, cache, tok,
+                                                 LM_YI_STEPS)
+        check(launched() == n0, "phase 10: a yi-34b decode step launched a "
+              "kernel")
+        check(int(cache["length"]) == LM_PREFILL + LM_YI_STEPS
+              and bool(torch.isfinite(lg).all())
+              and bool(((gen >= 0) & (gen < cfg.vocab)).all()),
+              "phase 10 yi-34b decode: length, logits or tokens")
+        lm_part(f"yi-34b decode batch 1, {LM_YI_STEPS} steps (ms a step)",
+                ms_d, peak_d, LM_YI_STEPS, 0,
+                f" tokens_per_s={1 / ms_d * 1e3:.1f}")
+        del cache, lg
+        # the comparisons run on the host: the card keeps its room for
+        # the plain path's [1, 56, 4096, 4096] float32 scores
+        last_k, cache_k = last_k.cpu(), {k: v.cpu()
+                                         for k, v in cache_k.items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launched()
+        plain = cfg
+        try:
+            out = T.prefill(cfg, model, toks, "torch")
+        except torch.cuda.OutOfMemoryError:
+            out = None
+        if out is None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            plain = dataclasses.replace(cfg, attn_chunk=LM_CHUNK)
+            out = T.prefill(plain, model, toks, "torch")
+        last_p, cache_p = out[0].cpu(), {k: v.cpu()
+                                          for k, v in out[1].items()}
+        del out
+        check(launched() == n0, "phase 10: the yi-34b plain path launched "
+              "a kernel")
+        log(f"phase 10 yi-34b prefill 1x{LM_PREFILL} plain: "
+            + ("the unchunked scores" if plain is cfg else
+               f"attn_chunk={LM_CHUNK} (the unchunked scores did not fit)")
+            + f", peak_bytes={torch.cuda.max_memory_allocated()} "
+            f"total_memory={total}")
+        t0 = time.perf_counter()
+        logits_f, cache_f = lm_prefill_f32(cfg, model, toks, 1)
+        log(f"phase 10 yi-34b float32 yardstick (a layer's weights cast at "
+            f"a time): {time.perf_counter() - t0:.1f} s")
+        lm_within("yi-34b prefill 4k kernel vs float32",
+                  lm_errors(last_k, cache_k, logits_f[:, 0], cache_f),
+                  lm_errors(last_p, cache_p, logits_f[:, 0], cache_f), 1.5)
+        del last_k, cache_k, last_p, cache_p, logits_f, cache_f
+        cut = model.converted(n_layers=LM_CPU_LAYERS)
+        del model
+        torch.cuda.empty_cache()
+        lm_cpu_check("yi-34b", cut, toks[:, :LM_CPU_PROMPT])
+        del cut
         torch.cuda.empty_cache()
 
     counts = {k: c for k, c in FA.LAUNCHES.items() if c}
@@ -3773,6 +3989,10 @@ def main() -> int:
     phase_small_weighted(device, SMALL_N, 5 * SMALL_N, SMALL_BATCHES,
                          SMALL_BATCH, backend="cuda", yardstick="torch")
 
+    # ---- phase 10: the LM stack, on a card nothing else holds ------------
+    lm_counts, lm_row = phase_lm(device)
+    torch.cuda.empty_cache()
+
     # ---- main path set-up (phase 3 runs on its state) --------------------
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGES, seed=0)
@@ -3821,10 +4041,6 @@ def main() -> int:
 
     # ---- phase 9: the GNN stack on the card -------------------------------
     phase_gnn(device, g, seeds)
-
-    # ---- phase 10: the LM stack on the card -------------------------------
-    lm_counts, lm_row = phase_lm(device)
-    torch.cuda.empty_cache()
 
     # ---- phase 11: training on the card -----------------------------------
     train_counts = phase_train(device, smi)

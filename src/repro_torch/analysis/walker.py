@@ -33,11 +33,15 @@ the same facts off what the dispatcher sees:
 
 Optionally the recorder tracks live storage bytes at every op
 (``track_memory``: a ``weakref.finalize`` on each output's untyped
-storage, deduplicated by storage) and checks every integer narrowing
-for values outside int32 (``check_narrowing``; the flags stay on the
-device until the recorder exits). ``profile_kernels`` runs
-``torch.profiler`` around the block, wraps each fixpoint round in a
-``record_function`` range named ``audit:<function>:<round>`` and adds one
+storage, deduplicated by storage; a gloo collective's work object holds
+its tensors until gloo's worker thread lets go of it, at a moment the
+scheduler picks, so the recorder holds them too and lets go only once
+that work is gone, before the next op: :meth:`RoundRecorder._settle`)
+and checks every integer narrowing for values outside int32
+(``check_narrowing``; the flags stay on the device until the recorder
+exits). ``profile_kernels`` runs ``torch.profiler`` around the block,
+wraps each fixpoint round in a ``record_function`` range named
+``audit:<function>:<round>`` and adds one
 ``kind="cuda"`` site a range with the CUDA kernels launched inside it
 (``launches``): the card's launch count of a round, hand-written kernels
 and elementwise kernels alike (``cuda_round_kernels``). The recorder
@@ -56,6 +60,7 @@ import importlib
 import os
 import re
 import sys
+import time
 import weakref
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -82,6 +87,11 @@ COLLECTIVE_OPS = {
 REDUCE_PRIMS = {0: "psum", 3: "pmin", 4: "pmax"}
 # the sending half of a ppermute: issued, not counted as its own site
 SEND_OPS = frozenset({"send"})
+# point-to-point c10d ops: gloo runs them on the calling thread, and a
+# ring holds their work objects across ops (``batch_isend_irecv``)
+P2P_OPS = frozenset({"send", "recv_", "recv_any_source_"})
+# how long :meth:`RoundRecorder._settle` waits for a worker thread
+SETTLE_TIMEOUT_S = 60.0
 
 # launch-class aten ops: the gather / scatter / sort family each runs as
 # its own kernel on the card (``index`` is a gather, ``index_put_`` a
@@ -118,6 +128,7 @@ RANGE_PREFIX = "audit:"
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ANALYSIS = os.path.join(_PKG, "analysis")
+_DIST = os.path.dirname(torch.distributed.__file__)
 _BIG = 1 << 62  # core/engine.py's sentinel key
 
 
@@ -181,6 +192,21 @@ def _snapshot(counters: Sequence[dict]) -> Dict[str, int]:
     return out
 
 
+def _in_torch_distributed() -> bool:
+    """Is the op dispatched from ``torch.distributed``'s own code (a
+    collective's ``wait()`` that copies its result out), which still
+    holds the work object?"""
+    f = sys._getframe(2)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if fn.startswith(_DIST):
+            return True
+        if fn.startswith(_PKG):
+            return False
+        f = f.f_back
+    return False
+
+
 class RoundRecorder(TorchDispatchMode):
     """Record every op dispatched inside the block as a :class:`Site`.
 
@@ -219,6 +245,9 @@ class RoundRecorder(TorchDispatchMode):
         self._range_key = None
         self._syncs_by_func: Dict[str, int] = {}
         self._gc = False
+        # (tensors, refs the work holds to each, work objects) of the
+        # collectives whose work may still be on a worker thread
+        self._held: List[Tuple[list, List[int], list]] = []
 
     # -- context --------------------------------------------------------
     def __enter__(self):
@@ -235,6 +264,9 @@ class RoundRecorder(TorchDispatchMode):
         return super().__enter__()
 
     def __exit__(self, *exc):
+        if exc[0] is None:
+            self._settle()
+        self._held.clear()
         try:
             out = super().__exit__(*exc)
         finally:
@@ -330,6 +362,50 @@ class RoundRecorder(TorchDispatchMode):
         if rec is not None:
             self._live_bytes -= rec[3]
 
+    def _collective(self, func, args, kwargs):
+        """Run a gloo collective and keep its tensors until
+        :meth:`_settle`: each work object holds references to them, and
+        gloo drops its own on its worker thread after the program's
+        ``wait()`` has returned. A tensor the program drops first would
+        be freed there, late by however long that thread waits for a
+        CPU, and a late free moves the live bytes of the points between.
+        ``held`` is how many references the finished work holds to each
+        tensor (its inputs, its outputs and its future's value)."""
+        ts = list({id(t): t for t in _tensors((args, kwargs))}.values())
+        before = [t._use_count() for t in ts]
+        out = func(*args, **kwargs)
+        works = [w for w in tree_leaves(out)
+                 if isinstance(w, torch.ScriptObject)]
+        for w in works:
+            w.wait()
+        held = [t._use_count() - b for t, b in zip(ts, before)]
+        self._held.append((ts, held, works))
+        return out
+
+    def _settle(self) -> None:
+        """Let go of the collectives' tensors once their work objects are
+        gone (the program drops its own before the next op): drop this
+        recorder's reference to each work, wait until the worker thread
+        has dropped its own (the tensors' use counts fall by ``held``),
+        then drop the tensors. A tensor nothing else holds is freed here,
+        on this thread, before the next op: where a prompt worker thread
+        would have let it go."""
+        while self._held:
+            ts, held, works = self._held.pop(0)
+            want = [t._use_count() - h for t, h in zip(ts, held)]
+            works.clear()
+            deadline = time.monotonic() + SETTLE_TIMEOUT_S
+            pause = 1e-5
+            while any(t._use_count() > w for t, w in zip(ts, want)):
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        "a collective's work object outlived the next op; "
+                        "the memory recorder takes synchronous collectives "
+                        "only")
+                time.sleep(pause)
+                pause = min(2 * pause, 1e-3)
+            del ts
+
     # -- profiler ranges -------------------------------------------------------
     def _close_range(self) -> None:
         if self._range is not None:
@@ -351,6 +427,8 @@ class RoundRecorder(TorchDispatchMode):
     # -- dispatch ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._held and not _in_torch_distributed():
+            self._settle()
         ctx = self._frames()
         self._poll_kernels(ctx)
         if self.profile_kernels:
@@ -358,7 +436,13 @@ class RoundRecorder(TorchDispatchMode):
         name = func.overloadpacket.__name__
         if self.check_narrowing and name in _NARROW_OPS:
             self._narrowing(name, args, kwargs, ctx)
-        out = func(*args, **kwargs)
+        if (self.track_memory and func.namespace == "c10d"
+                and name not in P2P_OPS
+                and all(t.device.type == "cpu"
+                        for t in _tensors((args, kwargs)))):
+            out = self._collective(func, args, kwargs)
+        else:
+            out = func(*args, **kwargs)
         self._record(func, name, args, kwargs, out, ctx)
         return out
 

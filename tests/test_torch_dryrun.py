@@ -266,7 +266,8 @@ def test_dot_flops_match_reference_compiled(small):
 
 
 def test_cli_runs_cells_on_a_fake_16x16_world(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
     out = tmp_path / "r.json"
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",

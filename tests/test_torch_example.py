@@ -4,6 +4,7 @@ single-kind stream on each engine (``--engine sharded`` on a world of
 one gloo rank), the weighted sliding-window stream, a simulated crash
 (exit 17) and the resume from its checkpoint (which the reference
 package loads too), and the refusal."""
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +24,7 @@ def run(tmp_path, *args, timeout=300):
         [sys.executable, str(EXAMPLE), *SMALL, "--ckpt",
          str(tmp_path / "ckpt.npz"), *args],
         capture_output=True, text=True, timeout=timeout, cwd=tmp_path,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
     )
     return out.returncode, out.stdout, out.stderr
 

@@ -44,7 +44,8 @@ def test_import_every_module_without_jax_or_repro():
             assert "repro_torch." + new in names, new
         print("ok", len(names))
     """)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

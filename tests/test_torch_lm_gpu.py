@@ -1,5 +1,6 @@
-"""The LM stack on the card: qwen2-7b at ``full()`` width cut to 2
-layers, random weights drawn on the card (seed 0), a 1 x 256 prompt.
+"""The LM stack on the card: qwen2-7b and qwen3-8b (its ``qk_norm``
+scales at ``d_head`` = 128) at ``full()`` width cut to 2 layers, random
+weights drawn on the card (seed 0), a 1 x 256 prompt.
 
 * The kernel path (``kernel_backend="cuda"``) launches
   ``flash_attention[causal,bf16,d128]`` once a layer a prefill or
@@ -43,11 +44,11 @@ def _card_no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-@pytest.fixture(scope="module")
-def model():
+@pytest.fixture(scope="module", params=["qwen2-7b", "qwen3-8b"])
+def model(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the card's kernel path is the test")
-    cfg = dataclasses.replace(configs.get_arch("qwen2-7b").full(),
+    cfg = dataclasses.replace(configs.get_arch(request.param).full(),
                               n_layers=LAYERS)
     with torch.no_grad():
         return T.init_params(cfg, torch.Generator("cuda").manual_seed(0),
@@ -57,7 +58,7 @@ def model():
 @pytest.fixture(scope="module")
 def toks():
     rng = np.random.default_rng(0)
-    t = rng.integers(0, 152064, (1, PROMPT + STEPS)).astype(np.int32)
+    t = rng.integers(0, 151936, (1, PROMPT + STEPS)).astype(np.int32)
     return torch.from_numpy(t)
 
 

@@ -20,7 +20,8 @@ PROBE = ("import runpy, sys; sys.argv = ['serve'] + sys.argv[1:]; "
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_serve_runs_on_the_cpu(arch):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", PROBE, "--arch", arch, "--device", "cpu",
          "--batch", "2", "--prompt-len", "16", "--gen", "6"],

@@ -11,7 +11,12 @@ storage bytes over recorded runs, and the committed formulas.
   sharded config and mesh (``vertex_halo`` under ``(2, 2)`` and
   ``(4, 1)``) at the held-out point, the at-rest state exact, no
   vertex-domain buffer of ``n`` rows under the range layouts, and a
-  seeded ``[n]`` buffer in the range session firing.
+  seeded ``[n]`` buffer in the range session firing;
+* on 2 gloo ranks under an adversarial schedule (rank 0 on one CPU, its
+  other threads at the lowest priority, so its main thread runs on as
+  soon as a collective's ``wait()`` returns and gloo's worker thread is
+  late to drop the work's tensors): a tensor dropped after its
+  all-reduce is out of the live bytes at the next op, every time.
 """
 import dataclasses
 import datetime
@@ -220,3 +225,70 @@ def test_seeded_vertex_buffer_fires_on_four_ranks(ranks):
     for res in ranks:
         assert any("O(n)-replicated vertex buffer" in m and "complete" in m
                    for m in res["seeded"]), res["seeded"]
+
+
+# -- a late worker thread -------------------------------------------------------
+_LATE = textwrap.dedent('''
+    import json, os, sys, time
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis.walker import RoundRecorder
+    from repro_torch.core import vertex_layout
+    rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    n = {n}
+    if rank == 0:
+        os.sched_setaffinity(0, {{min(os.sched_getaffinity(0))}})
+        for tid in map(int, os.listdir("/proc/self/task")):
+            if tid != os.getpid():
+                os.setpriority(os.PRIO_PROCESS, tid, 19)
+        with RoundRecorder(track_memory=True) as rec:
+            for _ in range(n):
+                t = torch.ones(1024, dtype=torch.int32)
+                vertex_layout.psum(t, dist.group.WORLD)
+                del t
+                torch.zeros(1, dtype=torch.int32)
+        with open(out, "w") as fh:
+            json.dump([b for s, b in zip(rec.sites, rec.point_bytes)
+                       if s.op == "zeros"], fh)
+    else:
+        for _ in range(n):
+            time.sleep(0.001)  # rank 0 waits in each all-reduce
+            dist.all_reduce(torch.ones(1024, dtype=torch.int32))
+    dist.destroy_process_group()
+''')
+
+
+def test_a_late_worker_thread_does_not_move_the_live_bytes(tmp_path):
+    """gloo's worker thread holds a finished all-reduce's work object, and
+    with it the tensor, for a moment after the program's ``wait()``
+    returns; the program drops the tensor at once. The recorder holds
+    the tensor until that work is gone, so its 4 KiB leave the live
+    bytes before the next op (the 4-byte ``zeros``) wherever the
+    scheduler puts the worker thread (without that, most of these points
+    held 4,100 B)."""
+    if not hasattr(os, "sched_setaffinity"):
+        pytest.skip("pins a rank to one CPU (Linux)")
+    n = 100
+    script = tmp_path / "late.py"
+    script.write_text(_LATE.format(n=n))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    store, out = str(tmp_path / "store"), tmp_path / "points.json"
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), store,
+                               str(out)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        log[-3000:] for log in logs)
+    assert json.loads(out.read_text()) == [4] * n

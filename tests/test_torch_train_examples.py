@@ -20,7 +20,12 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+# one intra-op thread a child: beside other test workers, torch's default
+# pool (a thread a core) oversubscribes the CPUs and its OpenMP threads
+# spin at every barrier (the tiny LM run: 7 s alone, over 900 s as one of
+# 6 such runs at once, 9-10 s with this bound)
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+           OMP_NUM_THREADS="1")
 
 
 def _run(args, timeout=240):
