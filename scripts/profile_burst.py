@@ -26,7 +26,7 @@ rank, ``kernel_backend="cuda"``) from the same state, one with
 replicated vertex state and one with ``--vertex-sharding`` (default
 ``range``), takes turns (replicated, range, range, replicated) and
 profiles the ``--vertex-sharding`` one's pair; under ``range`` the spans
-are ``order.place_block_ring`` and the halo session's
+read are ``order.place_block_ring`` and the halo session's
 ``complete`` (the statistics' all-gather and owner scatter) and
 ``gather_values`` (the regathers).
 
@@ -38,10 +38,11 @@ are ``order.place_block_ring`` and the halo session's
    maintainer) under ``torch.profiler``:
    wall time, device busy time, idle share, and the device time of the
    PyTorch ops and of the kernels that take most of it; the device time
-   of the kernels launched inside ``order.place_block`` (each call
-   wrapped in a ``record_function`` span for this pair only) and of the
-   core-maintenance edge passes (``csrc/coremaint.cu``'s edge kernels),
-   each with its share of the busy time.
+   of the kernels launched inside the program's own ``order.place_block``
+   spans (``repro_torch.trace``, which the program opens whenever a
+   profiler records) and of the core-maintenance edge passes
+   (``csrc/coremaint.cu``'s edge kernels), each with its share of the
+   busy time.
 
 Prints the card's ``nvidia-smi`` name and power limit first. Exits
 non-zero without a CUDA device.
@@ -89,11 +90,8 @@ def main() -> int:
         print("profile_burst: no CUDA device", file=sys.stderr)
         return 2
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import insert as core_insert
-    from repro_torch.core import remove as core_remove
-    from repro_torch.core import vertex_layout as core_layout
     from repro_torch.core.api import CoreMaintainer
     from repro_torch.graph.generators import rmat
     from repro_torch.kernels import build as KB
@@ -180,44 +178,23 @@ def main() -> int:
               f"{' weighted' if args.weighted else ''}: "
               f"remove_s={rm_s:.4f} insert_s={ins_s:.4f}", flush=True)
 
-    # each spanned function, wrapped where its callers look it up, for
-    # the profiled pair only: (owner, attribute, span name)
-    ring = prof_m.vertex_sharding == "range"
-    wraps = ([(mod, "place_block_ring", RANGE_SPANS[0])
-              for mod in (core_insert, core_remove)]
-             + [(core_layout.HaloSession, "complete", RANGE_SPANS[1]),
-                (core_layout.HaloSession, "gather_values", RANGE_SPANS[2])]
-             if ring else [(mod, "place_block", SPAN)
-                           for mod in (core_insert, core_remove)])
-    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in wraps]
-
-    def spanned(fn, name):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
-
+    # the program's own spans read for the profiled pair
+    names = (set(RANGE_SPANS) if prof_m.vertex_sharding == "range"
+             else {SPAN})
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for (owner, attr, name), (_, _, fn) in zip(wraps, saved):
-            setattr(owner, attr, spanned(fn, name))
-        try:
-            t0 = time.perf_counter()
-            K.reset_launches()
-            burst_pair(prof_m)
-            wall = time.perf_counter() - t0
-        finally:
-            for owner, attr, fn in saved:
-                setattr(owner, attr, fn)
+        t0 = time.perf_counter()
+        K.reset_launches()
+        burst_pair(prof_m)
+        wall = time.perf_counter() - t0
     print(f"profile launches: "
           f"{ {k: v for k, v in K.LAUNCHES.items() if v} }")
     # device kernels carry the device time; host-side ops (aten::*) show
     # the device time of the kernels they launched, so they are listed
     # apart and never summed with the kernels
     averages = prof.key_averages()
-    names = {name for _, _, name in wraps}
     timed = [e for e in averages if e.self_device_time_total > 0
-             and e.key not in names]  # the spans' own device ranges
+             and e.key not in names]  # the spans themselves
     kernels = [e for e in timed if e.device_type == DeviceType.CUDA]
     ops = [e for e in timed if e.device_type != DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)

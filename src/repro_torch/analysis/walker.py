@@ -564,8 +564,12 @@ def _loop_code(where: str):
     mod = importlib.import_module(
         f"{__package__.rsplit('.', 1)[0]}.{path[:-3].replace('/', '.')}")
     code = getattr(mod, func).__code__
+    # a ``with`` block's exception handlers sit after the body and jump
+    # back into it: only the body's back-edges are the loop's
+    body_end = min((e.target for e in dis.Bytecode(code).exception_entries),
+                   default=len(code.co_code))
     heads = {i.argval for i in dis.get_instructions(code)
-             if i.opname.startswith("JUMP_BACKWARD")}
+             if i.opname.startswith("JUMP_BACKWARD") and i.offset < body_end}
     if len(heads) != 1:
         raise RuntimeError(f"{where} has {len(heads)} loop back-edge "
                            "targets; the loop counter needs exactly one")

@@ -78,6 +78,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..device import resolve_backend, resolve_device
 from ..graph.csr import CSRGraph, build_csr
 from ..launch.mesh import make_edge_mesh, make_edge_vertex_mesh, table_group
@@ -326,6 +327,8 @@ class CoreMaintainer:
     hwm_ub: int = -1   # upper bound on the slot high-water mark
     host_renumbered: bool = False  # the last host-path call renumbered
     _last_window: int = dataclasses.field(default=0, repr=False)
+    # apply_batch calls so far: the batch number its trace span carries
+    _batches: int = dataclasses.field(default=0, repr=False)
     # the table tensors hold this rank's shard (set by _place_sharded)
     _sharded_table: bool = dataclasses.field(default=False, repr=False)
     # core/label hold this rank's owned slice (set by _place_vertices)
@@ -783,96 +786,107 @@ class CoreMaintainer:
         in-batch duplicate keeps the FIRST row's weight, inserting a
         live edge keeps the stored weight, and remove + insert in one
         batch commits the new weight."""
-        if insert_weights is not None and not self.weighted:
-            raise ValueError(
-                "insert_weights= needs weighted=True; the unweighted "
-                "engine would silently drop the weights"
-            )
-        if self.weighted:
-            if insert_weights is None:
-                insert_weights = np.ones(
-                    _as_edge_array(insert_edges).shape[0], dtype=np.int64)
-            ins, ins_w = self._validated(insert_edges, "insert",
-                                         weights=insert_weights)
-        else:
-            ins = self._validated(insert_edges, "insert")
-        rm = self._validated(remove_edges, "remove")
-        if self.engine == "host":
-            return self._apply_batch_host(ins, rm)
-        dev = self.device
-        b_ins = ins.shape[0]
-        if b_ins == 0 and rm.shape[0] == 0:
-            z = torch.zeros((), dtype=torch.int32, device=dev)
-            stats = BatchStats(
-                z, z, z, z, z, z, z,
-                torch.zeros((), dtype=torch.bool, device=dev), z,
-                torch.tensor(self.hwm_ub, dtype=torch.int32, device=dev),
-                z, z,
-            )
-            self.last_batch_stats = stats
-            return stats
-        self._ensure_capacity(b_ins)
-        iu = _pad_pow2(ins[:, 0], 0)
-        iv = _pad_pow2(ins[:, 1], 0)
-        iok = np.zeros(len(iu), dtype=bool)
-        iok[:b_ins] = True
-        ru = _pad_pow2(rm[:, 0], 0)
-        rv = _pad_pow2(rm[:, 1], 0)
-        rok = np.zeros(len(ru), dtype=bool)
-        rok[: rm.shape[0]] = True
-        # pow2 bound on the slot high-water mark incl. this batch: every
-        # edge pass runs over this slot prefix only, and (the free-list
-        # fills the lowest holes first) it always holds >= b_ins free
-        # slots
-        window = self._window(b_ins)
-        if 0 < self._last_window < window:
-            # the bucket would grow — refresh the exact bounds (one
-            # amortized sync) before paying for wider passes
-            self._refresh_bounds()
+        self._batches += 1
+        with trace.span("api.apply_batch", batch=self._batches):
+            if insert_weights is not None and not self.weighted:
+                raise ValueError(
+                    "insert_weights= needs weighted=True; the unweighted "
+                    "engine would silently drop the weights"
+                )
+            if self.weighted:
+                if insert_weights is None:
+                    insert_weights = np.ones(
+                        _as_edge_array(insert_edges).shape[0],
+                        dtype=np.int64)
+                ins, ins_w = self._validated(insert_edges, "insert",
+                                             weights=insert_weights)
+            else:
+                ins = self._validated(insert_edges, "insert")
+            rm = self._validated(remove_edges, "remove")
+            if self.engine == "host":
+                return self._apply_batch_host(ins, rm)
+            dev = self.device
+            b_ins = ins.shape[0]
+            if b_ins == 0 and rm.shape[0] == 0:
+                z = torch.zeros((), dtype=torch.int32, device=dev)
+                # the high-water mark below, copied from the host
+                trace.count_sync("core/api.py::apply_batch:hidden",
+                                 device=dev)
+                stats = BatchStats(
+                    z, z, z, z, z, z, z,
+                    torch.zeros((), dtype=torch.bool, device=dev), z,
+                    torch.tensor(self.hwm_ub, dtype=torch.int32,
+                                 device=dev),
+                    z, z,
+                )
+                self.last_batch_stats = stats
+                return stats
+            self._ensure_capacity(b_ins)
+            iu = _pad_pow2(ins[:, 0], 0)
+            iv = _pad_pow2(ins[:, 1], 0)
+            iok = np.zeros(len(iu), dtype=bool)
+            iok[:b_ins] = True
+            ru = _pad_pow2(rm[:, 0], 0)
+            rv = _pad_pow2(rm[:, 1], 0)
+            rok = np.zeros(len(ru), dtype=bool)
+            rok[: rm.shape[0]] = True
+            # pow2 bound on the slot high-water mark incl. this batch:
+            # every edge pass runs over this slot prefix only, and (the
+            # free-list fills the lowest holes first) it always holds >=
+            # b_ins free slots
             window = self._window(b_ins)
-        self._last_window = window
-        if self.weighted:
-            # padded lanes carry weight 1; iok=False keeps them out of
-            # the slot writes and the total-weight promotion bound
-            iw = _pad_pow2(ins_w.astype(np.int32), 1)
-            lanes = [torch.from_numpy(x).to(dev)
-                     for x in (iu, iv, iw, iok, ru, rv, rok)]
-            state = (self.src, self.dst, self.valid, self.w, self.core,
-                     self.label, self.n_edges)
-        else:
-            lanes = [torch.from_numpy(x).to(dev)
-                     for x in (iu, iv, iok, ru, rv, rok)]
-            state = (self.src, self.dst, self.valid, self.core, self.label,
-                     self.n_edges)
-        if self.engine == "sharded":
-            # every rank runs its shard's window with the same batch; the
-            # sparse cap is a second bucket, keyed off the padded batch
-            fcap = self._frontier_bucket(max(len(iu), len(ru)))
-            out = self._sharded_fn(window, fcap)(*state, *lanes)
-        elif self.weighted:
-            out = apply_batch_weighted(
-                *state, *lanes, self.n, self.n_levels, window,
-                kernel_backend=self.kernel_backend)
-        else:
-            out = apply_batch(*state, *lanes, self.n, self.n_levels, window,
-                              kernel_backend=self.kernel_backend)
-        if self.weighted:
-            (self.src, self.dst, self.valid, self.w, self.core, self.label,
-             self.n_edges, stats) = out
-        else:
-            (self.src, self.dst, self.valid, self.core, self.label,
-             self.n_edges, stats) = out
-        # monotone bounds: each insert can raise the densest shard's
-        # high-water mark and the live count by at most one; removals
-        # only help
-        self.hwm_ub = min(self.hwm_ub + b_ins, self._local_cap)
-        self.live_ub = min(self.live_ub + b_ins, self.capacity)
-        self.slot_cache = None
-        self.last_batch_stats = stats
-        if self.frontier_exchange == "sparse" and self.frontier_cap == 0:
-            # kept for the planned cap's feedback (_observed_frontier)
-            self._frontier_obs.append(stats.max_frontier)
-        return stats
+            if 0 < self._last_window < window:
+                # the bucket would grow — refresh the exact bounds (one
+                # amortized sync) before paying for wider passes
+                self._refresh_bounds()
+                window = self._window(b_ins)
+            self._last_window = window
+            if self.weighted:
+                # padded lanes carry weight 1; iok=False keeps them out
+                # of the slot writes and the total-weight promotion bound
+                iw = _pad_pow2(ins_w.astype(np.int32), 1)
+                lanes = [torch.from_numpy(x).to(dev)
+                         for x in (iu, iv, iw, iok, ru, rv, rok)]
+                state = (self.src, self.dst, self.valid, self.w, self.core,
+                         self.label, self.n_edges)
+            else:
+                lanes = [torch.from_numpy(x).to(dev)
+                         for x in (iu, iv, iok, ru, rv, rok)]
+                state = (self.src, self.dst, self.valid, self.core,
+                         self.label, self.n_edges)
+            trace.count_sync("core/api.py::apply_batch:hidden", len(lanes),
+                             dev)
+            if self.engine == "sharded":
+                # every rank runs its shard's window with the same batch;
+                # the sparse cap is a second bucket, keyed off the padded
+                # batch
+                fcap = self._frontier_bucket(max(len(iu), len(ru)))
+                out = self._sharded_fn(window, fcap)(*state, *lanes)
+            elif self.weighted:
+                out = apply_batch_weighted(
+                    *state, *lanes, self.n, self.n_levels, window,
+                    kernel_backend=self.kernel_backend)
+            else:
+                out = apply_batch(*state, *lanes, self.n, self.n_levels,
+                                  window, kernel_backend=self.kernel_backend)
+            if self.weighted:
+                (self.src, self.dst, self.valid, self.w, self.core,
+                 self.label, self.n_edges, stats) = out
+            else:
+                (self.src, self.dst, self.valid, self.core, self.label,
+                 self.n_edges, stats) = out
+            # monotone bounds: each insert can raise the densest shard's
+            # high-water mark and the live count by at most one; removals
+            # only help
+            self.hwm_ub = min(self.hwm_ub + b_ins, self._local_cap)
+            self.live_ub = min(self.live_ub + b_ins, self.capacity)
+            self.slot_cache = None
+            self.last_batch_stats = stats
+            if (self.frontier_exchange == "sparse"
+                    and self.frontier_cap == 0):
+                # kept for the planned cap's feedback (_observed_frontier)
+                self._frontier_obs.append(stats.max_frontier)
+            return stats
 
     def _sharded_fn(self, local_active: int,
                     frontier_cap: int = 0) -> Callable:
@@ -1075,7 +1089,9 @@ class CoreMaintainer:
         """Replace the monotone planning bounds with the exact values the
         device already computed (``stats.high_water`` and ``n_edges``)."""
         if self.last_batch_stats is not None:
+            trace.count_sync("core/api.py::_refresh_bounds:round")
             self.hwm_ub = int(self.last_batch_stats.high_water)
+        trace.count_sync("core/api.py::_refresh_bounds:round")
         self.live_ub = int(self.n_edges)
 
     def _ensure_capacity(self, b_ins: int) -> None:

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import graph_ops as G
+from .. import trace
 from .insert import (freelist_alloc, promotion_fixpoint,
                      promotion_fixpoint_halo, weighted_promotion_fixpoint,
                      weighted_promotion_fixpoint_halo)
@@ -77,11 +78,12 @@ def table_lookup(src, dst, valid, n: int):
     ``lookup(qkey) -> (found, slot)``; tombstones carry a sentinel key
     that sorts past every real key, so they are never found."""
     capacity = src.shape[0]
-    tkey = torch.where(valid, edge_key(torch.minimum(src, dst),
-                                       torch.maximum(src, dst), n),
-                       torch.full_like(src, _BIG, dtype=torch.int64))
-    torder = torch.argsort(tkey, stable=True)
-    tsorted = tkey[torder]
+    with trace.span("engine.lookup"):
+        tkey = torch.where(valid, edge_key(torch.minimum(src, dst),
+                                           torch.maximum(src, dst), n),
+                           torch.full_like(src, _BIG, dtype=torch.int64))
+        torder = torch.argsort(tkey, stable=True)
+        tsorted = tkey[torder]
 
     def lookup(qkey):
         pos = torch.searchsorted(tsorted, qkey).clamp(max=capacity - 1)
@@ -108,6 +110,7 @@ def batch_dedup(ins_u, ins_v, ins_ok, n: int):
     return ilo, ihi, iok & keep, key
 
 
+@trace.spanned("engine.batch_program")
 def batch_program(src, dst, valid, core, label, n_edges,
                   ins_u, ins_v, ins_ok, rm_u, rm_v, rm_ok,
                   n: int, n_levels: int, axis=None,
@@ -159,17 +162,18 @@ def batch_program(src, dst, valid, core, label, n_edges,
     lookup = table_lookup(src, dst, valid, n)
 
     # ---- 1. removals: vectorized slot lookup + tombstoning -------------
-    rlo = torch.minimum(rm_u, rm_v)
-    rhi = torch.maximum(rm_u, rm_v)
-    rm_ok = rm_ok & (rlo != rhi)
-    rfound, rslot = lookup(edge_key(rlo, rhi, n))
-    found = rfound & rm_ok
-    # scatter-max: not-found rows are no-ops even where they collide
-    rm_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    rm_mask = rm_mask.scatter_reduce_(0, rslot, found.to(torch.int32),
-                                      "amax").bool()
-    valid &= ~rm_mask
-    n_removed = allsum(rm_mask.sum(dtype=torch.int32))
+    with trace.span("engine.tombstone"):
+        rlo = torch.minimum(rm_u, rm_v)
+        rhi = torch.maximum(rm_u, rm_v)
+        rm_ok = rm_ok & (rlo != rhi)
+        rfound, rslot = lookup(edge_key(rlo, rhi, n))
+        found = rfound & rm_ok
+        # scatter-max: not-found rows are no-ops even where they collide
+        rm_mask = torch.zeros(capacity, dtype=torch.int32, device=dev)
+        rm_mask = rm_mask.scatter_reduce_(0, rslot, found.to(torch.int32),
+                                          "amax").bool()
+        valid &= ~rm_mask
+        n_removed = allsum(rm_mask.sum(dtype=torch.int32))
 
     core_pre_rm = core
     if weighted:
@@ -185,30 +189,37 @@ def batch_program(src, dst, valid, core, label, n_edges,
     n_dropped = (core != core_pre_rm).sum(dtype=torch.int32)
 
     # ---- 2. insert dedup + membership against the post-removal table --
-    ilo, ihi, iok, key = batch_dedup(ins_u, ins_v, ins_ok, n)
-    ifound, islot_hit = lookup(key)
-    exists = allsum((ifound & ~rm_mask[islot_hit]).to(torch.int32)) > 0
-    iok = iok & ~exists
+    with trace.span("engine.dedup"):
+        ilo, ihi, iok, key = batch_dedup(ins_u, ins_v, ins_ok, n)
+        ifound, islot_hit = lookup(key)
+        exists = allsum((ifound & ~rm_mask[islot_hit]).to(torch.int32)) > 0
+        iok = iok & ~exists
 
     # ---- 3. slot allocation from the free-list + table writes ----------
-    lpos, iok = freelist_alloc(valid, iok, axis=axis,
-                               hierarchical=(freelist == "hierarchical"))
-    # a kept lane has a slot inside this table unless it landed on
-    # another shard (lpos == capacity)
-    put = lpos < capacity
-    slots = lpos[put]
-    src[slots] = ilo[put].to(src.dtype)
-    dst[slots] = ihi[put].to(dst.dtype)
-    valid[slots] = True
-    if weighted:
-        # dedup kept the FIRST lane of an in-batch duplicate, so its
-        # weight is the one written; a live re-insert was masked above
-        # and keeps the stored weight
-        w[slots] = ins_w[put].to(w.dtype)
-    n_inserted = iok.sum(dtype=torch.int32)
-    n_recycled = allsum((lpos < hwm0).sum(dtype=torch.int32))
-    # n_edges is the LIVE edge count
-    n_edges = n_edges - n_removed + n_inserted
+    with trace.span("engine.alloc"):
+        lpos, iok = freelist_alloc(valid, iok, axis=axis,
+                                   hierarchical=(freelist == "hierarchical"))
+        # a kept lane has a slot inside this table unless it landed on
+        # another shard (lpos == capacity)
+        put = lpos < capacity
+        # the mask indexes below (and ins_w's), and on a card the host
+        # value ``True`` written into ``valid``
+        trace.count_sync("core/engine.py::batch_program:hidden",
+                         3 + weighted)
+        trace.count_sync("core/engine.py::batch_program:hidden", device=dev)
+        slots = lpos[put]
+        src[slots] = ilo[put].to(src.dtype)
+        dst[slots] = ihi[put].to(dst.dtype)
+        valid[slots] = True
+        if weighted:
+            # dedup kept the FIRST lane of an in-batch duplicate, so its
+            # weight is the one written; a live re-insert was masked above
+            # and keeps the stored weight
+            w[slots] = ins_w[put].to(w.dtype)
+        n_inserted = iok.sum(dtype=torch.int32)
+        n_recycled = allsum((lpos < hwm0).sum(dtype=torch.int32))
+        # n_edges is the LIVE edge count
+        n_edges = n_edges - n_removed + n_inserted
 
     # O(batch) delta keeps the shared (hi, dout_same) exact for the table
     # with the new edges
@@ -239,7 +250,8 @@ def batch_program(src, dst, valid, core, label, n_edges,
     # the weighted fixpoints froze the labels, so any moved core forces
     # one relabel; force=None keeps the unweighted gate as it was
     force = ((n_dropped > 0) | (n_promoted > 0)) if weighted else None
-    label, renumbered = maybe_renumber(core, label, force=force)
+    with trace.span("engine.renumber"):
+        label, renumbered = maybe_renumber(core, label, force=force)
 
     stats = BatchStats(
         n_inserted=n_inserted,

@@ -39,6 +39,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import graph_ops as G
+from .. import trace
 from ..kernels import coremaint
 from .order import place_block, place_block_ring
 from .remove import (weighted_core_fixpoint_pass,
@@ -204,58 +205,64 @@ def promotion_fixpoint(
     fmax = torch.zeros((), dtype=torch.int32, device=dev)
     rounds = 0
     while True:
-        # SEED: roots of pending edges (order-min endpoint at current
-        # state)
-        cs, cd = core[new_src], core[new_dst]
-        e_src_lt = (cs < cd) | ((cs == cd) & (label[new_src] < label[new_dst]))
-        root = torch.where(e_src_lt, new_src, new_dst)
-        seed = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
-            0, root, new_ok.to(torch.int32)) > 0
-        viol = layout.gather_mask((hi + dout_same) > layout.own(core))
-        fmax = torch.maximum(fmax, layout.frontier_peak(viol))
-        seed = seed | viol | promoted_prev
+        with trace.span("insert.round"):
+            # SEED: roots of pending edges (order-min endpoint at current
+            # state)
+            cs, cd = core[new_src], core[new_dst]
+            e_src_lt = (cs < cd) | ((cs == cd)
+                                    & (label[new_src] < label[new_dst]))
+            root = torch.where(e_src_lt, new_src, new_dst)
+            seed = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+                0, root, new_ok.to(torch.int32)) > 0
+            viol = layout.gather_mask((hi + dout_same) > layout.own(core))
+            fmax = torch.maximum(fmax, layout.frontier_peak(viol))
+            seed = seed | viol | promoted_prev
 
-        reach, passing, wave_fmax = _forward_reach(
-            src, dst, valid, core, label, seed, hi, dout_same, n, layout,
-            kernel_backend=kernel_backend,
-        )
-        cand0 = reach & passing
-        cand, evict_round, ev_fmax = _evict_fixpoint(
-            src, dst, valid, core, cand0, hi, n, layout,
-            kernel_backend=kernel_backend,
-        )
-        fmax = torch.maximum(fmax, torch.maximum(wave_fmax, ev_fmax))
+            with trace.span("insert.forward_reach"):
+                reach, passing, wave_fmax = _forward_reach(
+                    src, dst, valid, core, label, seed, hi, dout_same, n,
+                    layout, kernel_backend=kernel_backend,
+                )
+            cand0 = reach & passing
+            with trace.span("insert.evict"):
+                cand, evict_round, ev_fmax = _evict_fixpoint(
+                    src, dst, valid, core, cand0, hi, n, layout,
+                    kernel_backend=kernel_backend,
+                )
+            fmax = torch.maximum(fmax, torch.maximum(wave_fmax, ev_fmax))
 
-        new_core = core + cand.to(torch.int32)
-        # promoted -> head of O_{K+1} in old-label order
-        label = place_block(new_core, label, cand, at_head=True,
-                            n_levels=n_levels)
-        # Backward-evicted -> tail of O_K in (eviction round, old label)
-        # order; restores the dout <= core certificate
-        evicted = cand0 & ~cand
-        label = place_block(new_core, label, evicted, at_head=False,
-                            n_levels=n_levels, round_key=evict_round)
-        # (hi, dout_same) for the NEXT round; continue only while the
-        # k-order certificate is violated somewhere
-        if fuse_decision:
-            hi, dout_same, viol_next = coremaint.fused_promotion_stats(
-                src, dst, valid, new_core, label, n
-            )
-            changed = viol_next.any()
-        else:
-            hi, dout_same = G.hi_and_dout_same(
-                src, dst, valid, new_core, label, n, layout,
-                backend=kernel_backend,
-            )
-            changed = layout.any_owned(
-                (hi + dout_same) > layout.own(new_core)
-            )
-        core = new_core
-        promoted_prev = cand
-        v_plus = v_plus | reach
-        rounds += 1
-        if not bool(changed):
-            break
+            new_core = core + cand.to(torch.int32)
+            # promoted -> head of O_{K+1} in old-label order
+            label = place_block(new_core, label, cand, at_head=True,
+                                n_levels=n_levels)
+            # Backward-evicted -> tail of O_K in (eviction round, old
+            # label) order; restores the dout <= core certificate
+            evicted = cand0 & ~cand
+            label = place_block(new_core, label, evicted, at_head=False,
+                                n_levels=n_levels, round_key=evict_round)
+            # (hi, dout_same) for the NEXT round; continue only while the
+            # k-order certificate is violated somewhere
+            if fuse_decision:
+                hi, dout_same, viol_next = coremaint.fused_promotion_stats(
+                    src, dst, valid, new_core, label, n
+                )
+                changed = viol_next.any()
+            else:
+                hi, dout_same = G.hi_and_dout_same(
+                    src, dst, valid, new_core, label, n, layout,
+                    backend=kernel_backend,
+                )
+                changed = layout.any_owned(
+                    (hi + dout_same) > layout.own(new_core)
+                )
+            core = new_core
+            promoted_prev = cand
+            v_plus = v_plus | reach
+            rounds += 1
+            trace.count_sync("core/insert.py::promotion_fixpoint:round")
+            if not bool(changed):
+                break
+    trace.count_sync("core/insert.py::promotion_fixpoint:hidden", device=dev)
     rounds = torch.tensor(rounds, dtype=torch.int32, device=dev)
     return core, label, rounds, v_plus, fmax
 
@@ -285,6 +292,7 @@ def _forward_reach(src, dst, valid, core, label, seed, hi, dout_same,
         new_reach = reach | grow_full
         changed = (new_reach != reach).any() | (new_passing != passing).any()
         reach, passing = new_reach, new_passing
+        trace.count_sync("core/insert.py::_forward_reach:round")
         if not bool(changed):
             return reach, passing, fmax
 
@@ -315,6 +323,7 @@ def _evict_fixpoint(src, dst, valid, core, cand, hi, n: int,
         rnd += 1
         changed = (new_cand != cand).any()
         cand = new_cand
+        trace.count_sync("core/insert.py::_evict_fixpoint:round")
         if not bool(changed):
             return cand, evict_round, fmax
 

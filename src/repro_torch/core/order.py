@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from .vertex_layout import axis_index, pmax, pmin
 
 LABEL_GAP = 1 << 20
@@ -80,6 +81,7 @@ def level_max_labels(core, label, exclude, n_levels: int) -> torch.Tensor:
     return _segment_reduce(vals, core, n_levels, "amax", _I64_MIN)
 
 
+@trace.spanned("order.place_block")
 def place_block(core_new, label, moving, at_head: bool, n_levels: int,
                 round_key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Assign fresh labels to ``moving`` vertices at the head (insertion,
@@ -143,6 +145,7 @@ def maybe_renumber(core, label,
     need = needs_renumber(label)
     if force is not None:
         need = need | force
+    trace.count_sync("core/order.py::maybe_renumber:round")
     if bool(need):
         label = renumber(core, label)
     return label, need
@@ -192,6 +195,7 @@ def _ring_steps(n_shards: int) -> range:
     return range(1, max(n_shards - 1, 1) + 1)
 
 
+@trace.spanned("order.place_block_ring")
 def place_block_ring(core_new, label, moving, at_head: bool, n_levels: int,
                      axis, n_shards: int,
                      round_key: Optional[torch.Tensor] = None,

@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import graph_ops as G
+from .. import trace
 from ..kernels import coremaint
 from .order import place_block, place_block_ring
 from .vertex_layout import HaloSession, ReplicatedVertices, _note
@@ -75,33 +76,37 @@ def removal_fixpoint(
     fmax = torch.zeros((), dtype=torch.int32, device=core.device)
     rounds = 0
     while True:
-        if fuse_decision:
-            _, k_hi, k_dout, new_core, drop = coremaint.fused_removal_round(
-                src, dst, valid, core, label, n
-            )
-            if share_stats:
-                hi, dout_same = k_hi, k_dout
-        else:
-            if share_stats:
-                mcd, hi, dout_same = G.mcd_hi_dout(
-                    src, dst, valid, core, label, n, layout,
-                    backend=kernel_backend,
-                )
+        with trace.span("remove.round"):
+            if fuse_decision:
+                _, k_hi, k_dout, new_core, drop = (
+                    coremaint.fused_removal_round(src, dst, valid, core,
+                                                  label, n))
+                if share_stats:
+                    hi, dout_same = k_hi, k_dout
             else:
-                mcd = G.count_ge(src, dst, valid, core, n, layout,
-                                 backend=kernel_backend)
-            core_own = layout.own(core)
-            drop = layout.gather_mask((mcd < core_own) & (core_own > 0))
-            new_core = core - drop.to(torch.int32)
-        fmax = torch.maximum(fmax, layout.frontier_peak(drop))
-        rounds += 1
-        if not bool(layout.any_owned(drop)):
-            # the last round drops nothing: core and label stay as they are
-            break
-        # place this round's droppers at the tail of their new level
-        label = place_block(new_core, label, drop, at_head=False,
-                            n_levels=n_levels)
-        core = new_core
+                if share_stats:
+                    mcd, hi, dout_same = G.mcd_hi_dout(
+                        src, dst, valid, core, label, n, layout,
+                        backend=kernel_backend,
+                    )
+                else:
+                    mcd = G.count_ge(src, dst, valid, core, n, layout,
+                                     backend=kernel_backend)
+                core_own = layout.own(core)
+                drop = layout.gather_mask((mcd < core_own) & (core_own > 0))
+                new_core = core - drop.to(torch.int32)
+            fmax = torch.maximum(fmax, layout.frontier_peak(drop))
+            rounds += 1
+            trace.count_sync("core/remove.py::removal_fixpoint:round")
+            if not bool(layout.any_owned(drop)):
+                # the last round drops nothing: core and label stay
+                break
+            # place this round's droppers at the tail of their new level
+            label = place_block(new_core, label, drop, at_head=False,
+                                n_levels=n_levels)
+            core = new_core
+    trace.count_sync("core/remove.py::removal_fixpoint:hidden",
+                     device=core.device)
     rounds = torch.tensor(rounds, dtype=torch.int32, device=core.device)
     return core, label, rounds, hi, dout_same, fmax
 

@@ -81,6 +81,8 @@ from typing import Any, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import trace
+
 
 @dataclasses.dataclass
 class Traffic:
@@ -415,6 +417,7 @@ class HaloSession:
         return pos.clamp_(0, self.halo_cap - 1)
 
     # -- owner values -> halo (the dense regather) ----------------------
+    @trace.spanned("HaloSession.gather_values")
     def gather_values(self, owned: torch.Tensor) -> torch.Tensor:
         """Owned values -> this rank's halo values ``[halo_cap]`` by ONE
         reduce_scatter over the owner group: each rank contributes the
@@ -430,6 +433,7 @@ class HaloSession:
         return _reduce_scatter(contrib, self.axis)
 
     # -- halo stat partials -> owned completed stats -------------------
+    @trace.spanned("HaloSession.complete")
     def complete(self, stats: torch.Tensor) -> torch.Tensor:
         """Halo-domain partial stats ``[halo_cap, ...]`` -> exact OWNED
         stats ``[n_owned, ...]``: one all_gather over the owner group
