@@ -32,7 +32,8 @@ Phases:
      between the two backends. The unweighted replays also run on an
      ``engine="host"`` maintainer with ``batch`` free slots (so it
      compacts): cores against BZ, labels equal to the unified replay's,
-     no kernel launched;
+     no coremaint kernel launched (label placement runs
+     ``kernels/order.py`` on every engine on the card);
   3. each kernel against its plain version on the main path's state
      (the RMAT graph of phase 4: window of ~2^24 slots, n = 2^21), with
      0 mismatches required, timed with CUDA events beside its byte bound
@@ -58,7 +59,7 @@ Phases:
      of the same graph (the seed two-call path: host dedup against the
      ``edge_slot`` dict, plain PyTorch fixpoints on the card): after each
      batch the cores, labels, ``n_inserted`` and ``n_removed`` equal
-     phase 4's, and no kernel launch counter moved; per batch the wall
+     phase 4's, and no launch counter of kernels a-h moved; per batch the wall
      time split into host dedup, device fixpoints, renumber gate and
      compaction, with the rounds; once the time to build the
      ``edge_slot`` dict; at the end the cores against a fresh peel and
@@ -252,6 +253,19 @@ Phases:
      check run. The rows of kernels a, b and c gain
      ``audit_launches``.
 
+ 14. (run after phase 3) label placement's level kernels
+     (``kernels/order.py`` ``place_levels``, ``csrc/order.cu``) at the
+     sizes of the benchmark's cells: n = 2,097,152 over 771 levels
+     (power-law, as ``rmat-s21``) and n = 4,847,571 over 13 levels (as
+     ``er-livej``), unique gap-spaced labels, 1% and 30% of the vertices
+     moving: the labels equal ``core/order.py``'s plain path
+     (``place_levels_plain``) bit for bit at the head and the tail, no
+     vertex on the spill path; the kernels and the plain level
+     reductions timed with CUDA events from the same ranks, beside the
+     byte bound (core, moving, label and the output once, the movers'
+     ranks) and the sort that ``place_block`` runs before them. Its row
+     of the kernels line counts phase 4's launches.
+
 The sizes are fixed below; ``scripts/profile_burst.py`` profiles a burst
 at the same size (``--engine host``: on the host engine).
 
@@ -379,6 +393,9 @@ P13_LANE_UPLOADS = 6
 STAT_ROWS = (("count_ge", "i32"), ("count_gt", "i32"), ("sum", "i32"),
              ("max", "i32"), ("sum", "f32"), ("max", "f32"),
              ("count_ge", "i64"), ("sum", "i64"))
+# phase 14: (cell, n, kmax) of the benchmark's cells, the movers' shares
+ORDER_CELLS = (("rmat-s21", 2_097_152, 770), ("er-livej", 4_847_571, 12))
+ORDER_MOVING = (0.01, 0.3)
 MAIN_PATH_KERNELS = ("coo_stat[din]", "coo_stat[same_in]",
                      "fused_removal_round", "fused_promotion_stats")
 WEIGHTED_PATH_KERNELS = ("coo_stat[wsum]",)
@@ -787,6 +804,83 @@ def phase_kernels(device, m, iters: int, seed: int = 0) -> list:
     return rows
 
 
+def order_state(device, n: int, kmax: int, p_move: float, seed: int):
+    """A vertex state at a cell's size: levels 0..kmax all held, a
+    power-law share of them (RMAT) or most vertices on the top levels
+    (ER), unique gap-spaced labels (a renumbered state), ``p_move`` of
+    the vertices moving, eviction-round keys."""
+    import torch
+    from repro_torch.core.order import LABEL_GAP
+    rng = np.random.default_rng(seed)
+    if kmax > 100:
+        core = np.minimum(rng.zipf(1.6, size=n) - 1, kmax)
+    else:
+        core = rng.binomial(kmax, 0.75, size=n)
+    core[:kmax + 1] = np.arange(kmax + 1)
+    label = (rng.permutation(n).astype(np.int64) - n // 2) * LABEL_GAP
+    moving = rng.random(n) < p_move
+    rkey = rng.integers(0, 60, size=n)
+    return [torch.from_numpy(x).to(device) for x in
+            (core.astype(np.int32), label, moving, rkey.astype(np.int32))]
+
+
+def phase_order(device, iters: int) -> dict:
+    """Phase 14: ``place_levels`` against the plain level reductions at
+    the benchmark's sizes; returns its kernels row (``launches`` filled
+    in from phase 4)."""
+    import torch
+    from repro_torch.core import order as O
+    from repro_torch.kernels import order as KO
+
+    row = dict(name="place_levels", route="cuda",
+               source="src/repro_torch/csrc/order.cu",
+               replaces="no TPU kernel: the reference's jnp segment_min / "
+                        "segment_max", launches=0, max_abs_err=0.0,
+               library_ms=None, cells={})
+    for cell, n, kmax in ORDER_CELLS:
+        n_levels = n + 2
+        for p_move in ORDER_MOVING:
+            core, label, moving, rkey = order_state(device, n, kmax, p_move,
+                                                    seed=n)
+            _, perm = O._mover_order(core, label, moving, n_levels, rkey)
+            ranks = O._ranks(perm)
+            KO.reset_spill_count()
+            for at_head in (True, False):
+                got = KO.place_levels(core, label, moving, ranks, at_head,
+                                      n_levels)
+                want = O.place_levels_plain(core, label, moving, ranks,
+                                            at_head, n_levels)
+                check(torch.equal(got, want),
+                      f"phase 14 {cell} p_move={p_move} at_head={at_head}: "
+                      f"{int((got != want).sum())} labels != plain")
+            check(KO.spill_count() == 0,
+                  f"phase 14 {cell}: {KO.spill_count()} vertices spilled")
+            ms = time_ms(lambda: KO.place_levels(
+                core, label, moving, ranks, False, n_levels), iters, device)
+            plain_ms = time_ms(lambda: O.place_levels_plain(
+                core, label, moving, ranks, False, n_levels),
+                max(1, iters // 4), device)
+            sort_ms = time_ms(lambda: O._ranks(O._mover_order(
+                core, label, moving, n_levels, rkey)[1]), iters, device)
+            n_move = int(moving.sum())
+            # core, moving, label and the output once; the movers' ranks
+            nbytes = 4 * n + n + 8 * n + 8 * n + 4 * n_move
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"phase 14 {cell}: n={n} levels={kmax + 1} "
+                f"moving={n_move} mismatches=0 spilled=0 "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"sort_ms={sort_ms:.4f} bytes={nbytes} "
+                f"bound_ms={bound_ms:.4f} share={100 * bound_ms / ms:.2f}%")
+            row["cells"][f"{cell}@{p_move}"] = dict(
+                ms=ms, plain_ms=plain_ms, sort_ms=sort_ms, bound_ms=bound_ms)
+            if p_move == ORDER_MOVING[0] and cell == ORDER_CELLS[0][0]:
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by="bytes")
+            del core, label, moving, rkey, perm, ranks, got, want
+            torch.cuda.empty_cache()
+    return row
+
+
 def _wsum_bytes(e: int, e_valid: int, n: int) -> int:
     """Bytes a wsum pass must move: the window's valid mask (1 B a slot),
     src, dst and w of the live slots only (the kernel skips a dead slot
@@ -879,6 +973,7 @@ def phase_main(device, m, g, sample, stream) -> tuple:
     import torch
     from repro_torch.core.decomposition import peel_decomposition
     from repro_torch.kernels import coremaint as K
+    from repro_torch.kernels import order as KO
 
     batches = [("burst remove", None, sample),
                ("burst insert", sample, None)]
@@ -887,6 +982,7 @@ def phase_main(device, m, g, sample, stream) -> tuple:
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
+    KO.reset_launches()
     history = []
 
     def run(name, ins, rm):
@@ -918,8 +1014,8 @@ def phase_main(device, m, g, sample, stream) -> tuple:
             run(*batch)
     for batch in batches[2:]:
         run(*batch)
-    launches = dict(K.LAUNCHES)
-    for k in MAIN_PATH_KERNELS:
+    launches = {**K.LAUNCHES, **KO.LAUNCHES}
+    for k in (*MAIN_PATH_KERNELS, *KO.LAUNCHES):
         check(launches[k] > 0 or not on_card,
               f"phase 4: kernel {k} was never launched")
     peak = torch.cuda.max_memory_allocated() if on_card else None
@@ -4007,6 +4103,8 @@ def main() -> int:
 
     # ---- phase 3 --------------------------------------------------------
     rows = phase_kernels(device, m, ITERS)
+    # ---- phase 14 -------------------------------------------------------
+    order_row = phase_order(device, ITERS)
     w = m._window(0)
     snap = tuple(x.clone() for x in (m.src[:w], m.dst[:w], m.valid[:w],
                                      m.core, m.label))
@@ -4030,6 +4128,8 @@ def main() -> int:
 
     # ---- phase 13: the auditor on the card, phase 4's batch ---------------
     audit_launches = phase_audit(device, start4, stream)
+    order_row.update(launches=launches["place_levels"],
+                     status="on the main path")
     for r in rows:
         r["launches"] = launches[r["name"]]
         # the unified engine fuses the mcd_hi_dout / hi_dout passes into
@@ -4150,7 +4250,7 @@ def main() -> int:
             r["train_launches"] = train_counts[r["name"]]
     lm_row["sharded_launches"] = sharded_counts.get(
         lm_row["name"].split(" ")[0], 0)  # the row of phase 10's counter
-    rows += new_rows + [lm_row]
+    rows += new_rows + [lm_row, order_row]
 
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -22,6 +22,10 @@ numbers a traced batch (``api.apply_batch`` spans):
 * ``round_idle_ms``: the device's idle time inside ``remove.round`` and
   ``insert.round`` spans;
 * ``syncs_per_batch``: the window's syncs over its batches;
+* ``spill_share``: the share of the vertices that label placement's level
+  pass (``kernels/order.py``) covered over the window that took its spill
+  path (a level beyond the shared table), from the kernel's device-side
+  tally, read after the window;
 
 with ``span_device_share`` (the spans' device time over the traced busy
 time) and the traced batches' mean latency beside the window's, by kind
@@ -61,6 +65,7 @@ def main() -> int:
     from corebench import harness, spans, tracing
     from corebench.systems import Program
     from repro_torch import trace
+    from repro_torch.kernels import order as korder
 
     seen = {}
 
@@ -68,9 +73,13 @@ def main() -> int:
         def reset_launches(self):
             super().reset_launches()
             trace.reset_syncs()
+            korder.reset_launches()
+            korder.reset_spill_count()
 
         def launches(self):
             seen["syncs"] = dict(trace.SYNCS)
+            seen["spilled"] = korder.spill_count()
+            seen["placed"] = korder.VERTICES["place_levels"]
             return super().launches()
 
     summarize = tracing.summarize
@@ -107,6 +116,8 @@ def main() -> int:
         "round_idle_ms": per_batch(ROUND_SPANS, "idle_s"),
         "syncs_per_batch": sum(seen["syncs"].values())
         / res["notes"]["window_batches"],
+        "spill_share": seen["spilled"] / max(seen["placed"], 1),
+        "spilled": seen["spilled"], "placed": seen["placed"],
         "span_device_share": sum(s["device_s"] for s in sp.values())
         / res["device"]["busy_s"],
         "batch_ms": {"window": window, "traced": traced},

@@ -6,7 +6,9 @@ same per-function lint over the same targets (``LINT_TARGETS``:
 ``core/api.py``, ``engine.py``, ``sharded.py``, ``remove.py``,
 ``insert.py``, ``vertex_layout.py`` and ``launch/mesh.py``; the port
 adds ``graph_ops.py`` and ``order.py``, whose loop conditions and
-renumber gate are host reads too). Forbidden inside a linted function:
+renumber gate are host reads too, and ``kernels/order.py``'s wrapper,
+whose launch sizes its scratch from host numbers only). Forbidden inside
+a linted function:
 
   * ``<expr>.block_until_ready(...)``, ``<expr>.item()`` and
     ``torch.cuda.synchronize(...)`` — always a sync;
@@ -54,6 +56,7 @@ INSERT_PATH = os.path.join(_CORE_DIR, "insert.py")
 VERTEX_LAYOUT_PATH = os.path.join(_CORE_DIR, "vertex_layout.py")
 GRAPH_OPS_PATH = os.path.join(_CORE_DIR, "graph_ops.py")
 ORDER_PATH = os.path.join(_CORE_DIR, "order.py")
+ORDER_KERNELS_PATH = os.path.join(_PKG, "kernels", "order.py")
 MESH_PATH = os.path.join(_LAUNCH_DIR, "mesh.py")
 
 # the per-batch edit path + every planning helper it calls
@@ -104,8 +107,10 @@ LINT_TARGETS = {
     }),
     ORDER_PATH: frozenset({
         "maybe_renumber", "maybe_renumber_ring", "place_block",
-        "place_block_ring",
+        "place_block_plain", "place_levels_plain", "_mover_order",
+        "_level_bases", "_place_from_ranks", "place_block_ring",
     }),
+    ORDER_KERNELS_PATH: frozenset({"place_levels"}),
     MESH_PATH: frozenset({
         "make_edge_mesh", "make_edge_vertex_mesh", "make_mesh",
     }),

@@ -121,9 +121,10 @@ def _dim_formula(values: Sequence[int],
 def _linear_formula(values: Sequence[int],
                     envs: Sequence[Dict[str, int]]) -> Optional[str]:
     """``a * name + b`` (integers) for the first size name that fits the
-    dimension at every point (the port's place_block level arrays are
-    ``n_levels + 1 = n + 3`` long, its packed lane lists multiples of
-    ``lanes``), or None."""
+    dimension at every point (the port's plain place_block level arrays
+    are ``n_levels + 1 = n + 3`` long, the card's level table counts
+    ``kernels/order.py``'s ``n_levels + 3 = n + 5``, its packed lane lists
+    multiples of ``lanes``), or None."""
     for name in SIZE_NAMES:
         xs = [e.get(name) for e in envs]
         if None in xs or len(set(xs)) < 2:

@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from .. import trace
+from ..kernels import order as order_kernels
 from .vertex_layout import axis_index, pmax, pmin
 
 LABEL_GAP = 1 << 20
@@ -91,23 +92,72 @@ def place_block(core_new, label, moving, at_head: bool, n_levels: int,
     label)`` — old-label order for promotions (required to preserve the
     k-order certificate), eviction-round order for Backward-evicted
     vertices, any order for removal drops.
+
+    On a CUDA tensor the same sort, then ``kernels/order.py``
+    ``place_levels`` (a level pass with per-block tables in shared memory
+    and an assignment pass, no contended atomics); on any other device
+    ``place_block_plain``. Both give the same labels bit for bit.
     """
-    n = core_new.shape[0]
+    if core_new.device.type != "cuda":
+        return place_block_plain(core_new, label, moving, at_head, n_levels,
+                                 round_key)
+    _, perm = _mover_order(core_new, label, moving, n_levels, round_key)
+    return order_kernels.place_levels(core_new, label, moving, _ranks(perm),
+                                      at_head, n_levels)
+
+
+def _mover_order(core_new, label, moving, n_levels: int, round_key):
+    """``(sort_level, perm)``: the moving vertices ordered by (new level,
+    round_key, old label), every other vertex after them (its level read
+    as ``n_levels``)."""
+    sort_level = torch.where(moving, core_new,
+                             torch.full_like(core_new, n_levels))
+    keys = ((label, sort_level) if round_key is None
+            else (label, round_key, sort_level))
+    return sort_level, lexsort(keys)
+
+
+def place_block_plain(core_new, label, moving, at_head: bool, n_levels: int,
+                      round_key: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """``place_block`` in plain PyTorch, as the reference computes it."""
+    base_min, base_max = _level_bases(core_new, label, moving, n_levels)
+    # sort_level is held to the end, as the audited memory peak has it
+    sort_level, perm = _mover_order(core_new, label, moving, n_levels,
+                                    round_key)
+    ranks = _ranks(perm)
+    return _place_from_ranks(core_new, label, moving, ranks, base_min,
+                             base_max, at_head, n_levels)
+
+
+def place_levels_plain(core_new, label, moving, ranks, at_head: bool,
+                       n_levels: int) -> torch.Tensor:
+    """``kernels/order.py`` ``place_levels`` in plain PyTorch: the part of
+    ``place_block_plain`` that does not sort, given the movers' ranks."""
+    base_min, base_max = _level_bases(core_new, label, moving, n_levels)
+    return _place_from_ranks(core_new, label, moving, ranks, base_min,
+                             base_max, at_head, n_levels)
+
+
+def _level_bases(core_new, label, moving, n_levels: int):
+    """Each level's least and greatest non-moving label, 0 where every
+    member moves, by scatters over all n vertices into ``n_levels`` bins
+    (a level outside ``[0, n_levels)`` dropped by the spare row)."""
     base_min = level_min_labels(core_new, label, moving, n_levels)
     base_max = level_max_labels(core_new, label, moving, n_levels)
     base_min = torch.where(base_min == _POS, torch.zeros_like(base_min),
                            base_min)
     base_max = torch.where(base_max == _NEG, torch.zeros_like(base_max),
                            base_max)
+    return base_min, base_max
 
-    # order moving vertices by (new level, round_key, old label)
-    sort_level = torch.where(moving, core_new,
-                             torch.full_like(core_new, n_levels))
-    if round_key is None:
-        perm = lexsort((label, sort_level))
-    else:
-        perm = lexsort((label, round_key, sort_level))
-    ranks = _ranks(perm)
+
+def _place_from_ranks(core_new, label, moving, ranks, base_min, base_max,
+                      at_head: bool, n_levels: int) -> torch.Tensor:
+    """The new labels from the movers' ranks and the level bases. A
+    level's first rank is the least rank of its movers; the sort puts
+    every mover first, level by level, so it is also the number of movers
+    on the levels below (the prefix sum ``place_levels`` takes)."""
     first_rank = _segment_reduce(
         torch.where(moving, ranks, torch.full_like(ranks, 2**30)),
         core_new, n_levels, "amin", torch.iinfo(torch.int32).max,

@@ -35,6 +35,7 @@ from repro_torch.kernels import coremaint as K
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import fm_interaction as FM
 from repro_torch.kernels import ops
+from repro_torch.kernels import order as KO
 from repro_torch.kernels import segment_ell as SE
 from repro_torch.models import recsys
 
@@ -170,8 +171,10 @@ def test_host_engine_on_card_matches_unified_and_cpu(graph, stream):
     """``engine="host"`` on the card: cores and labels equal to the
     unified engine's with the kernels, the whole state (slot table, bump
     pointer, capacity, ``edge_slot``, 12 statistics) equal to the host
-    engine on the CPU, the cores to BZ, and no kernel launched. The
-    table starts with 40 free slots, so the host path compacts."""
+    engine on the CPU, the cores to BZ, and no coremaint kernel
+    launched; label placement runs ``kernels/order.py`` on the card, as
+    every engine's does. The table starts with 40 free slots, so the host
+    path compacts."""
     _card()
     g = (erdos_renyi(500, 2500, seed=3) if graph == "er"
          else rmat(9, 3000, seed=3))
@@ -184,6 +187,7 @@ def test_host_engine_on_card_matches_unified_and_cpu(graph, stream):
     assert (h.device.type, h.kernel_backend) == ("cuda", "torch")
     with pytest.raises(ValueError, match="needs a device engine"):
         CoreMaintainer.from_graph(g, engine="host", kernel_backend="cuda")
+    placed = KO.LAUNCHES["place_levels"]
     for ev in events:
         u.apply_batch(insert_edges=ev.edges, remove_edges=ev.removals)
         before = dict(K.LAUNCHES)
@@ -199,6 +203,7 @@ def test_host_engine_on_card_matches_unified_and_cpu(graph, stream):
         assert h.capacity == c.capacity and h.edge_slot == c.edge_slot
         cur = build_csr(g.n, np.asarray(sorted(h.edge_slot)))
         np.testing.assert_array_equal(h.cores(), bz_from_csr(cur))
+    assert KO.LAUNCHES["place_levels"] > placed
 
 
 def _wsum_window(n, e, seed, oor=()):

@@ -91,6 +91,50 @@ def test_place_block_every_vertex_moving():
         np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("with_round_key", [False, True])
+@pytest.mark.parametrize("seed,ties,n_core", [(0, True, 5), (1, True, 40),
+                                              (2, False, 5), (3, True, 1)])
+def test_first_rank_is_the_prefix_sum_of_mover_counts(seed, ties, n_core,
+                                                      with_round_key):
+    """The identity ``kernels/order.py`` rests on: at every level holding a
+    mover, the plain path's ``_segment_reduce(amin)`` of the mover ranks
+    equals the exclusive prefix sum of the per-level mover counts (the
+    sort puts every mover first, level by level)."""
+    n = 300
+    core, label, moving, rk = _state(n, seed, n_core=n_core, tie_labels=ties)
+    n_levels = n + 2
+    core_t, label_t, moving_t = (torch.from_numpy(x)
+                                 for x in (core, label, moving))
+    _, perm = torder._mover_order(
+        core_t, label_t, moving_t, n_levels,
+        torch.from_numpy(rk) if with_round_key else None)
+    ranks = torder._ranks(perm)
+    first_rank = torder._segment_reduce(
+        torch.where(moving_t, ranks, torch.full_like(ranks, 2**30)),
+        core_t, n_levels, "amin", torch.iinfo(torch.int32).max)
+    count = np.bincount(core[moving], minlength=n_levels)
+    prefix = np.concatenate([[0], np.cumsum(count)[:-1]])
+    held = count > 0
+    assert held.any() and not held.all()
+    np.testing.assert_array_equal(_np(first_rank)[held], prefix[held])
+
+
+def test_place_block_on_cpu_launches_nothing():
+    """A CPU tensor takes the plain path: no kernel launch is counted, and
+    the kernel's wrapper refuses CPU tensors outright."""
+    from repro_torch.kernels import order as korder
+    core, label, moving, _ = _state(64, 5)
+    args = [torch.from_numpy(x) for x in (core, label, moving)]
+    before = dict(korder.LAUNCHES)
+    want = torder.place_block_plain(*args, True, 66)
+    got = torder.place_block(*args, True, 66)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    assert korder.LAUNCHES == before
+    rank = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        korder.place_levels(args[0], args[1], args[2], rank, True, 66)
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_renumber_matches_with_ties(seed):
     core, label, _, _ = _state(300, seed, tie_labels=True)
