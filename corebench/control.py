@@ -2,19 +2,24 @@
 guarantee that the configurations state broken, to show that the check
 that decides ``correct`` catches it.
 
-The guarantee broken is exactness after a removal burst: ``Control``
-keeps the edge set exactly, but after a removal it runs the decrease-only
-core fixpoint (a vertex loses a level while fewer than ``core`` of its
-neighbours have a core at least its own) for one round only, where the
-exact fixpoint runs until nothing changes: the shortcut of capping the
-removal rounds. Its labels stay as they were. After an insertion it peels
-afresh, so insertions are exact and the labels are a peel order.
+The guarantee broken is exactness after removals. ``Control`` keeps the
+edge set exactly, and after a batch that removes edges it takes the cores
+from the decrease-only core fixpoint (a vertex loses a level while fewer
+than ``core`` of its neighbours have a core at least its own) run for one
+round only, where the exact fixpoint runs until nothing changes: the
+shortcut of capping the removal rounds. The fixpoint starts from an exact
+upper bound: the cores before the batch when it only removes, a fresh
+peel of the edge set with the batch's insertions and without its
+removals when it also inserts (a mixed batch). A batch that only inserts
+is peeled afresh, exact. The labels are those of the last peel.
 
     python3 corebench/control.py --workload rmat-s21.burst --seed 7 --batches 6
 
 runs the cell's set-up and traffic with the control in the program's
-place for ``--batches`` batches and prints the compared numbers beside
-their limits, as a run does; the benchmark's own runs never run it.
+place for ``--batches`` batches from the traffic's first step (no
+warm-up: each of its batches would be a peel) and prints the compared
+numbers beside their limits, as a run does; the benchmark's own runs
+never run it.
 """
 from __future__ import annotations
 
@@ -29,14 +34,16 @@ import torch
 if __package__ in (None, ""):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from corebench import reference  # noqa: E402
+from corebench.references import kcore as reference  # noqa: E402
 
 ROUNDS = 1  # removal rounds the control runs (the exact fixpoint: all)
 
 
 class Control:
     def __init__(self, config: dict, n: int, indptr: np.ndarray,
-                 indices: np.ndarray, device):
+                 indices: np.ndarray, device, weights=None):
+        if weights is not None:
+            raise ValueError("the control judges unweighted graphs")
         ip = torch.as_tensor(indptr, device=device)
         dst = torch.as_tensor(indices, device=device).long()
         src = torch.repeat_interleave(torch.arange(n, device=device),
@@ -47,43 +54,49 @@ class Control:
         self.core, self.label = reference.core_numbers(self.keys, n,
                                                        with_order=True)
 
-    def apply(self, insert, remove) -> dict:
+    def apply(self, insert, remove, insert_weights=None) -> dict:
         n, dev = self.n, self.keys.device
-        before = self.keys.numel()
+        before = self.keys
+        kept = before
         if len(remove):
-            self.keys = reference.remove_keys(
-                self.keys, reference.edge_keys(remove, n, dev))
-        removed = before - self.keys.numel()
+            kept = reference.remove_keys(before,
+                                         reference.edge_keys(remove, n, dev))
+        after = kept
         if len(insert):
-            self.keys = torch.unique(torch.cat(
-                [self.keys, reference.edge_keys(insert, n, dev)]))
-        inserted = self.keys.numel() - before + removed
-        if len(insert):
-            self.core, self.label = reference.core_numbers(self.keys, n,
-                                                           with_order=True)
-        elif len(remove):
-            lo, hi = self.keys // n, self.keys % n
+            new = reference.edge_keys(insert, n, dev)
+            after = torch.unique(torch.cat([kept, new]))
+            # exact on the edge set with the insertions, without the
+            # removals: an upper bound of the cores after the batch
+            self.core, self.label = reference.core_numbers(
+                torch.unique(torch.cat([before, new])), n, with_order=True)
+        if len(remove):
+            lo, hi = after // n, after % n
             for _ in range(ROUNDS):
                 c = self.core
                 mcd = (torch.bincount(lo[c[hi] >= c[lo]], minlength=n)
                        + torch.bincount(hi[c[lo] >= c[hi]], minlength=n))
                 self.core = c - ((mcd < c) & (c > 0)).long()
+        self.keys = after
         z = torch.zeros((), dtype=torch.int64)
-        return {"n_inserted": inserted, "n_removed": removed,
+        return {"n_inserted": after.numel() - kept.numel(),
+                "n_removed": before.numel() - kept.numel(),
                 "remove_rounds": z, "insert_rounds": z, "n_promoted": z,
                 "v_plus": z}
 
     def state(self) -> tuple:
         return self.core, self.label
 
-    def live_keys(self) -> torch.Tensor:
-        return self.keys
+    def live_keys(self) -> tuple:
+        return self.keys, None
 
     def reset_launches(self) -> None:
         pass
 
     def launches(self) -> int:
         return 0
+
+    def syncs(self):
+        return None
 
     def entry_points(self) -> list:
         return []
@@ -101,7 +114,7 @@ def main(argv=None) -> int:
         print("control: no CUDA device", file=sys.stderr)
         return 2
     res = run_cell(args.workload, args.seed, 1e9, False, device=args.device,
-                   system=Control, max_batches=args.batches)
+                   system=Control, max_batches=args.batches, warmup=False)
     for k, v in res["checks"].items():
         print(f"control check {k} {v['value']} limit {v['limit']}",
               file=sys.stderr)

@@ -1,23 +1,32 @@
-"""The benchmark's graph generators: edges drawn on the device from the
-seed, deduplicated there, and returned as sorted unique undirected edge
-keys ``lo * n + hi`` (``lo < hi``, int64).
+"""A configuration's graph, drawn on the device from the seed by the
+generator the configuration names: ``"generator": "<name>"`` is
+``corebench/generators/<name>.py``, found by name (``parts.py``).
 
-A configuration names its generator by ``"generator"``:
+A generator module defines
 
-* ``"kronecker"``: the Graph500 Kronecker generator (``scale``,
-  ``edgefactor``, ``initiator`` = [A, B, C]): ``edgefactor << scale``
-  draws, two uniform numbers a level as in the specification's reference
-  code, vertex ids permuted at random; self loops and duplicates dropped.
-* ``"gnm"``: Erdos-Renyi G(n, m) with exactly ``m`` distinct edges: pairs
-  drawn uniformly, deduplicated, and a uniform ``m``-subset of the
-  distinct pairs kept.
+* ``generate(config, gen, device)``: a dict with ``"n"`` and ``"keys"``,
+  the sorted unique undirected edge keys ``lo * n + hi`` (``lo < hi``,
+  int64) of the graph's structure, optionally ``"weights"`` (positive
+  int64, aligned with ``keys``) and anything ``more`` needs;
+* ``more(config, graph, count, gen, device)``: ``{"keys"[, "weights"]}``,
+  ``count`` further distinct edges of the same law that are absent from
+  ``graph["keys"]`` (``graph`` is what ``generate`` returned).
 
-Everything here is plain PyTorch. Nothing imports the system under test.
+The structure comes from the configuration's ``graph_seed``; a run's
+``--seed`` draws only the vertex ids (``Graph.perm``). Everything here is
+plain PyTorch. Nothing imports the system under test.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+from pathlib import Path
+from typing import Optional
+
 import numpy as np
 import torch
+
+from . import parts
 
 
 def sub_seed(seed: int, tag: int) -> int:
@@ -26,72 +35,87 @@ def sub_seed(seed: int, tag: int) -> int:
     return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
-def _unique_keys(u: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+def unique_keys(u: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+    """The sorted unique keys of the pairs ``(u, v)``, self loops dropped."""
     lo, hi = torch.minimum(u, v), torch.maximum(u, v)
     keep = lo != hi
     return torch.unique(lo[keep] * n + hi[keep])
 
 
-def kronecker(scale: int, edgefactor: int, initiator, gen: torch.Generator,
-              device) -> tuple:
-    """Graph500 Kronecker edges: ``(n, keys)``."""
-    a, b, c = (float(x) for x in initiator)
-    n = 1 << scale
-    draws = edgefactor << scale
-    ab = a + b
-    c_norm = c / (1.0 - ab)
-    a_norm = a / ab
-    u = torch.zeros(draws, dtype=torch.int64, device=device)
-    v = torch.zeros(draws, dtype=torch.int64, device=device)
-    for level in range(scale):
-        ii = torch.rand(draws, generator=gen, device=device) > ab
-        thresh = torch.where(ii, c_norm, a_norm)
-        jj = torch.rand(draws, generator=gen, device=device) > thresh
-        u += ii.long() << level
-        v += jj.long() << level
-    perm = torch.randperm(n, generator=gen, device=device)
-    return n, _unique_keys(perm[u], perm[v], n)
+def distinct_absent(draw, present: torch.Tensor, count: int,
+                    gen: torch.Generator) -> torch.Tensor:
+    """``count`` sorted distinct keys, none in the sorted ``present``: the
+    unique keys ``draw(k)`` gives for ``k`` draws, gathered until there are
+    enough, and a uniform ``count``-subset of them kept."""
+    dev = present.device
+    keys = torch.zeros(0, dtype=torch.int64, device=dev)
+    stalled = 0
+    while keys.numel() < count:
+        new = draw(count - keys.numel() + max(1024, count // 1000))
+        at = torch.searchsorted(present, new).clamp(max=present.numel() - 1)
+        if present.numel():
+            new = new[present[at] != new]
+        grown = torch.unique(torch.cat([keys, new]))
+        stalled = stalled + 1 if grown.numel() == keys.numel() else 0
+        if stalled > 100:
+            raise ValueError(f"the law gives fewer than {count} absent edges")
+        keys = grown
+    pick = torch.randperm(keys.numel(), generator=gen, device=dev)[:count]
+    return torch.sort(keys[pick]).values
 
 
-def gnm(n: int, m: int, gen: torch.Generator, device) -> tuple:
-    """G(n, m) edges: ``(n, keys)`` with exactly ``m`` distinct keys."""
-    if m > n * (n - 1) // 2:
-        raise ValueError(f"G({n}, {m}) has more edges than pairs")
-    keys = torch.zeros(0, dtype=torch.int64, device=device)
-    while keys.numel() < m:
-        k = m - keys.numel() + max(1024, m // 1000)
-        u = torch.randint(0, n, (k,), generator=gen, device=device)
-        v = torch.randint(0, n, (k,), generator=gen, device=device)
-        keys = torch.unique(torch.cat([keys, _unique_keys(u, v, n)]))
-    pick = torch.randperm(keys.numel(), generator=gen, device=device)[:m]
-    return n, torch.sort(keys[pick]).values
+@dataclasses.dataclass
+class Graph:
+    """One run's graph: the structure (``keys``, ``weights``) in its own
+    vertex ids, and ``perm``, the run's ids (vertex ``v`` is ``perm[v]``)."""
+    n: int
+    keys: torch.Tensor
+    weights: Optional[torch.Tensor]
+    perm: torch.Tensor
+    config: dict
+    law: object
+    drawn: dict
+
+    def more(self, count: int, gen: torch.Generator) -> tuple:
+        """``(keys, weights or None)`` of ``count`` further edges of the
+        generator's law, absent from the graph, in the structure's ids."""
+        out = self.law.more(self.config, self.drawn, count, gen,
+                            self.keys.device)
+        return out["keys"], out.get("weights")
+
+    def run_edges(self, keys: torch.Tensor) -> torch.Tensor:
+        """The ``[k, 2]`` edges of structure keys, in the run's ids."""
+        return torch.stack([self.perm[keys // self.n],
+                            self.perm[keys % self.n]], -1)
+
+    @functools.cached_property
+    def relabelled(self) -> tuple:
+        """``(keys, weights or None)`` in the run's ids, sorted by key."""
+        keys, order = relabel_order(self.keys, self.perm, self.n)
+        return keys, (None if self.weights is None else self.weights[order])
 
 
-def generate(config: dict, seed: int, device) -> tuple:
-    """``(n, keys, perm)`` of a configuration's graph for one seed.
-
-    The graph's structure comes from the configuration's ``graph_seed``;
-    ``perm`` is the vertex relabelling that ``seed`` draws, which
-    ``relabel`` applies: every seed gets the same graph in another vertex
-    order."""
+def generate(config: dict, seed: int, device, root: Path = parts.ROOT) -> Graph:
+    """A configuration's graph for one seed: its structure from
+    ``graph_seed`` by the named generator, its vertex ids from ``seed``:
+    every seed gets the same graph in another vertex order."""
     gen = torch.Generator(device=device)
     gen.manual_seed(sub_seed(config["graph_seed"], 0))
-    kind = config["generator"]
-    if kind == "kronecker":
-        n, keys = kronecker(config["scale"], config["edgefactor"],
-                            config["initiator"], gen, device)
-    elif kind == "gnm":
-        n, keys = gnm(config["n"], config["m"], gen, device)
-    else:
-        raise ValueError(f"unknown generator {kind!r}")
+    law = parts.load("generators", config["generator"], root)
+    drawn = law.generate(config, gen, device)
     gen.manual_seed(sub_seed(seed, 3))
-    return n, keys, torch.randperm(n, generator=gen, device=device)
+    perm = torch.randperm(drawn["n"], generator=gen, device=device)
+    return Graph(n=drawn["n"], keys=drawn["keys"],
+                 weights=drawn.get("weights"), perm=perm, config=config,
+                 law=law, drawn=drawn)
 
 
-def relabel(keys: torch.Tensor, perm: torch.Tensor, n: int) -> torch.Tensor:
-    """The sorted keys of the graph with vertex ``v`` renamed ``perm[v]``."""
+def relabel_order(keys: torch.Tensor, perm: torch.Tensor, n: int) -> tuple:
+    """``(sorted keys, order)`` of the graph with vertex ``v`` renamed
+    ``perm[v]``: the renamed key ``i`` of the sorted list is that of
+    ``keys[order[i]]``."""
     lo, hi = perm[keys // n], perm[keys % n]
-    return torch.sort(torch.minimum(lo, hi) * n + torch.maximum(lo, hi)).values
+    return torch.sort(torch.minimum(lo, hi) * n + torch.maximum(lo, hi))
 
 
 def csr_arrays(keys: torch.Tensor, n: int) -> tuple:

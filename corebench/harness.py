@@ -1,15 +1,18 @@
-"""One run of one cell: set-up, the measured window, the traced pairs
+"""One run of one cell: set-up, the measured window, the traced batches
 (``--trace 1``), the check against the plain reference, and the metrics.
 
-The cell, its configuration, its traffic mix and its metrics are found by
-name: ``BENCHMARK.json``'s ``workloads`` entry names the configuration
-(its ``file``) and the mix (``corebench/traffic/<name>.json``); each
-metric is read by ``corebench/metrics/<name>.py``'s ``read(run)``.
+Everything is found by name: ``BENCHMARK.json``'s ``workloads`` entry
+names the configuration (its ``file``) and the mix
+(``corebench/traffic/<name>.json``); the configuration names its
+generator (``corebench/generators/<name>.py``, see ``graphs.py``) and
+optionally its reference (``corebench/references/<name>.py``, default
+``kcore``); the mix names its kind (``corebench/kinds/<kind>.py``, see
+``mixes.py``); each metric is read by ``corebench/metrics/<name>.py``'s
+``read(run)``. Nothing here branches on any of those names.
 """
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import json
 import subprocess
 import sys
@@ -19,12 +22,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import graphs, mixes, reference, tracing
+from . import graphs, mixes, parts, spans, tracing
 from .systems import Program
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-SPANS = ("burst_remove", "burst_insert")
+# the benchmark's span around each traced batch, by the batch's kind
+SPANS = ("burst_remove", "burst_insert", "burst_mixed")
+DEFAULT_REFERENCE = "kcore"
 # the numbers compared with the reference, each with its limit: every one
 # is an exact comparison, so every limit is 0
 LIMITS = {"core_mismatch": 0, "order_violations": 0, "edge_diff": 0,
@@ -63,12 +68,7 @@ def metric_names(bench: dict, workload: str, trace: bool) -> list:
 
 def reader(name: str, root: Path = ROOT):
     """``read(run)`` of ``corebench/metrics/<name>.py``."""
-    path = root / HERE.name / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"corebench_metric_{name}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return parts.load("metrics", name, root).read
 
 
 def _sync(dev: torch.device):
@@ -107,50 +107,42 @@ def _stats_row(batch, seconds: float, st) -> dict:
     return row
 
 
-def _judge(state_of: dict, keys: torch.Tensor, n: int, traffic,
-           live: torch.Tensor, last: int, rows: list) -> dict:
-    """The numbers compared with the reference (see ``LIMITS``)."""
-    dev = keys.device
-    peeled = {}
-
-    def ref_keys(removed):
-        if removed is None:
-            return keys
-        return reference.remove_keys(keys, reference.edge_keys(
-            traffic.chunks[removed], n, dev))
-
-    def ref_core(removed):
-        if removed not in peeled:
-            peeled[removed] = reference.core_numbers(ref_keys(removed), n)
-        return peeled[removed]
-
-    core_bad = order_bad = 0
-    for _, (removed, core, label) in sorted(state_of.items(),
-                                            key=lambda kv: str(kv[0])):
-        want = ref_core(removed)
-        core = torch.as_tensor(core, device=dev).long()
-        label = torch.as_tensor(label, device=dev).long()
-        core_bad += int((core != want).sum())
-        order_bad += reference.order_violations(ref_keys(removed), n, want,
-                                                label)
-    count_bad = sum(
-        int(r["n_inserted"]) != r["sent_insert"]
-        or int(r["n_removed"]) != r["sent_remove"] for r in rows)
-    return {"core_mismatch": core_bad, "order_violations": order_bad,
-            "edge_diff": reference.edge_diff(
-                live, ref_keys(traffic.removed_after(last))),
-            "count_mismatch": count_bad}
+def _judge(reference, n: int, traffic, states: dict, last: int,
+           live: tuple, rows: list, dev: torch.device) -> dict:
+    """The numbers compared with the reference (see ``LIMITS``).
+    ``states`` maps each checked step to the program's ``(core, label)``
+    there; the traffic gives the edge set each step implies, and each
+    distinct set goes to the reference once, with every state that should
+    hold it."""
+    expected, want = [], None
+    for step, state in sorted(states.items()):
+        keys, weights = traffic.live(step, dev)
+        for k, w, held in expected:
+            if torch.equal(k, keys) and (w is None) == (weights is None) \
+                    and (w is None or torch.equal(w, weights)):
+                held.append(state)
+                keys, weights = k, w
+                break
+        else:
+            expected.append((keys, weights, [state]))
+        if step == last:
+            want = (keys, weights)
+    return reference.check(n, expected, live, want, rows)
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", t_start: float = None, root: Path = ROOT,
-             system=Program, max_batches: int = None) -> dict:
+             system=Program, max_batches: int = None,
+             warmup: bool = True) -> dict:
     """One run; returns the result object (without the import guard,
-    which ``run.py`` applies). ``system`` and ``max_batches`` serve the
-    control runs and the tests."""
+    which ``run.py`` applies). ``system``, ``max_batches`` and ``warmup``
+    (False: the window starts at the traffic's step 0) serve the control
+    runs and the tests."""
     t_start = time.perf_counter() if t_start is None else t_start
     bench = load_bench(root)
     _, config, mix = find_cell(bench, workload, root)
+    reference = parts.load("references",
+                           config.get("reference", DEFAULT_REFERENCE), root)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = _sync(dev)
@@ -158,13 +150,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     # ---- set-up: the graph on the device from the seed, the traffic -----
     t0 = time.perf_counter()
-    n, keys, perm = graphs.generate(config, seed, dev)
-    traffic = mixes.make(mix, keys, n, config["graph_seed"], seed, perm)
-    keys = graphs.relabel(keys, perm, n)
-    del perm
+    g = graphs.generate(config, seed, dev, root)
+    traffic = mixes.make(mix, g, config["graph_seed"], seed, root)
+    n = g.n
+    keys, weights = g.relabelled
+    del g
     indptr, indices = graphs.csr_arrays(keys, n)
-    keys_host = keys.cpu()
     m_edges = keys.numel()
+    weights = None if weights is None else weights.cpu().numpy()
     del keys
     sync()
     split["generate_s"] = time.perf_counter() - t0
@@ -172,25 +165,27 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sut = system(config, n, indptr, indices, dev)
+    sut = system(config, n, indptr, indices, dev, weights=weights)
     sync()
     split["from_graph_s"] = time.perf_counter() - t0
     log(f"{workload} seed {seed}: n={n} m={m_edges}, generated in "
         f"{split['generate_s']:.2f} s, from_graph {split['from_graph_s']:.2f} s")
-    del indptr, indices
+    del indptr, indices, weights
     core0, label0 = (x.cpu() for x in sut.state())
     t0 = time.perf_counter()
     warm = []
-    for b in traffic.warmup():
-        st = sut.apply(b.insert, b.remove)
+    for b in (traffic.warmup() if warmup else []):
+        st = sut.apply(b.insert, b.remove, b.insert_weights)
         sync()
         warm.append(_stats_row(b, 0.0, st))
     split["warmup_s"] = time.perf_counter() - t0
-    pair_s = 2 * split["warmup_s"] / len(warm)
     # the two states checked inside the window, drawn from the seed among
-    # the pairs the window will surely reach (half of what the warm-up's
-    # time a pair allows)
-    reach = max(1, int(0.5 * seconds / max(pair_s, 1e-6)))
+    # the pairs of batches the window will surely reach (half of what the
+    # warm-up's time a pair allows)
+    reach = 1
+    if warm:
+        pair_s = 2 * split["warmup_s"] / len(warm)
+        reach = max(1, int(0.5 * seconds / max(pair_s, 1e-6)))
     if max_batches:
         reach = max(1, min(reach, max_batches // 2))
     u = np.random.default_rng(graphs.sub_seed(seed, 2)).random(2)
@@ -198,14 +193,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     sut.reset_launches()
 
     # ---- the measured window ------------------------------------------------
+    step0 = len(warm)  # the traffic's step of the window's first batch
     rows = []
     t_win = time.perf_counter()
     setup_s = t_win - t_start
     i = 0
     while True:
-        b = traffic.batch(i)
+        b = traffic.batch(step0 + i)
         t0 = time.perf_counter()
-        st = sut.apply(b.insert, b.remove)
+        st = sut.apply(b.insert, b.remove, b.insert_weights)
         sync()
         t1 = time.perf_counter()
         rows.append((b, t1 - t0, st))
@@ -218,43 +214,43 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     log(f"window: {len(rows)} batches in {window_s:.2f} s after a "
         f"{setup_s:.2f} s set-up (warm-up {split['warmup_s']:.3f} s)")
     launches = sut.launches()
+    syncs = sut.syncs()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
-    # ---- the traced pairs (--trace 1) ----------------------------------------
+    # ---- the traced batches (--trace 1) --------------------------------------
     traced = None
     if trace:
-        traced = _trace(sut, traffic, i, rows, sync, on_card)
-        i += 2 * traffic.trace_pairs
-    last = i - 1
+        traced = _trace(sut, traffic, step0 + i, rows, sync, on_card)
+        i += traffic.trace_batches
+    last = step0 + i - 1
 
     # ---- the check ------------------------------------------------------------
     t0 = time.perf_counter()
     core_f, label_f = sut.state()
-    states = {"initial": (None, core0, label0),
-              "final": (traffic.removed_after(last), core_f.cpu(),
-                        label_f.cpu())}
+    states = {-1: (core0, label0), last: (core_f.cpu(), label_f.cpu())}
     for j, snap in sample.items():
         if snap is not None:
-            states[j] = (traffic.removed_after(j), *snap)
+            states.setdefault(step0 + j, snap)
     live = sut.live_keys()
     del sut, st, core_f, label_f
     if on_card:
         torch.cuda.empty_cache()
     batch_rows = [_stats_row(b, s, st) for b, s, st in rows]
-    checks = _judge(states, keys_host.to(dev), n, traffic, live, last,
-                    batch_rows + warm)
+    checks = _judge(reference, n, traffic, states, last, live,
+                    batch_rows + warm, dev)
     del live
     check_s = time.perf_counter() - t0
     log(f"check: {len(states)} states against the reference in "
         f"{check_s:.2f} s")
     correct = all(checks[k] <= LIMITS[k] for k in LIMITS)
-    n_window = len(rows) - (2 * traffic.trace_pairs if trace else 0)
+    n_window = len(rows) - (traffic.trace_batches if trace else 0)
     run = {"batches": [{k: (int(v) if torch.is_tensor(v) else v)
                         for k, v in r.items()}
                        for r in batch_rows[:n_window]],
            "window_s": window_s, "setup_s": setup_s,
-           "memory_peak_bytes": peak, "launches": launches,
-           "n": n, "m": m_edges, "batch_edges": len(traffic.chunks[0]),
+           "memory_peak_bytes": peak, "launches": launches, "syncs": syncs,
+           "n": n, "m": m_edges,
+           "batch_edges": max(r["sent_remove"] for r in batch_rows),
            "trace": traced}
     metrics = {}
     for name, unit in metric_names(bench, workload, trace):
@@ -283,26 +279,42 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
 
 def _trace(sut, traffic, i0: int, rows: list, sync, on_card: bool) -> dict:
-    """``trace_pairs`` more pairs under ``torch.profiler``, each batch in a
-    span of the benchmark's own, every kernel entry point call counted."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """``trace_batches`` more steps under the profiler, each batch in a
+    span of the benchmark's own named after its kind, every kernel entry
+    point call counted; the program's own spans summed by
+    ``spans.span_summary``.
+
+    The profiler is ``torch.autograd.profiler.profile``, which
+    ``torch.profiler.profile`` wraps: the wrapper's start imports
+    ``torch._inductor`` (and with it ``torch._dynamo``), seconds of
+    imports that the run would pay and the trace does not need."""
+    from torch.autograd.profiler import profile, record_function
 
     calls = []
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if on_card else [])
-    with profile(activities=acts) as prof, \
+    t0 = time.perf_counter()
+    with profile(use_cpu=True, use_device="cuda" if on_card else None,
+                 use_kineto=True) as prof, \
             _counting_calls(sut.entry_points(), calls):
-        for i in range(i0, i0 + 2 * traffic.trace_pairs):
+        for i in range(i0, i0 + traffic.trace_batches):
             b = traffic.batch(i)
-            with record_function(SPANS[i % 2]):
-                t0 = time.perf_counter()
-                st = sut.apply(b.insert, b.remove)
+            with record_function(f"burst_{b.kind}"):
+                t1 = time.perf_counter()
+                st = sut.apply(b.insert, b.remove, b.insert_weights)
                 sync()
-                rows.append((b, time.perf_counter() - t0, st))
+                rows.append((b, time.perf_counter() - t1, st))
+    log(f"trace: {traffic.trace_batches} batches traced in "
+        f"{time.perf_counter() - t0:.2f} s with the profiler's start and stop")
+    t0 = time.perf_counter()
     import repro_torch
     cu = Path(repro_torch.__file__).parent / "csrc" / "coremaint.cu"
-    out = tracing.summarize(prof.events(), SPANS, tracing.kernel_names(cu))
+    events = prof.function_events
+    t1 = time.perf_counter()
+    out = tracing.summarize(events, SPANS, tracing.kernel_names(cu))
     out["calls"] = calls
+    t2 = time.perf_counter()
+    out["spans"] = spans.span_summary(events, spans.program_spans())
+    log(f"trace: {len(events)} events read in {t1 - t0:.2f} s, summed in "
+        f"{t2 - t1:.2f} s and {time.perf_counter() - t2:.2f} s (spans)")
     return out
 
 

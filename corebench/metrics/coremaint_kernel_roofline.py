@@ -1,8 +1,8 @@
 """Share of the HBM roofline that the core-maintenance kernels reach in the
 traced pairs, in percent: the bytes each call of a ``kernels/coremaint.py``
 entry point must move (``corebench/roofline.py``, counted once a call,
-with the window's slots and its live edges taken as m minus a burst, the
-fewest a batch holds) over the device time of ``csrc/coremaint.cu``'s
+with the window's slots and its live edges taken as m less the most edges
+a batch removes, the fewest a batch holds) over the device time of ``csrc/coremaint.cu``'s
 kernels in the trace, against 3.35 TB/s."""
 from corebench import roofline
 

@@ -1,5 +1,7 @@
 """Mean latency of the window's insertion bursts (``apply_batch`` with an
-insertion list, to the end of its sync), in ms."""
+insertion list only, to the end of its sync), in ms. ``None`` where the
+window has no pure insertion batch, as a mixed batch (``kind`` ``mixed``)
+is neither a removal nor an insertion burst."""
 
 
 def read(run):

@@ -1,5 +1,7 @@
 """Mean latency of the window's removal bursts (``apply_batch`` with a
-removal list, to the end of its sync), in ms."""
+removal list only, to the end of its sync), in ms. ``None`` where the
+window has no pure removal batch, as a mixed batch (``kind`` ``mixed``)
+is neither a removal nor an insertion burst."""
 
 
 def read(run):

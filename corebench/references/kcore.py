@@ -10,6 +10,21 @@ The peel (Batagelj-Zaversnik's order, level-synchronous as in ParK):
 ``k`` starts at 0; every wave removes all live vertices of degree <= k
 and gives them core k; when none is left, ``k`` rises to the least live
 degree. Each wave touches only the removed vertices' adjacency lists.
+
+The default reference of a configuration (no ``"reference"`` key); it
+judges unweighted graphs and refuses weights. ``check`` gives the four
+numbers the harness holds to their limits, each exact (limit 0):
+
+* ``core_mismatch``: vertices whose core differs from a fresh peel of the
+  edge set the traffic implies, summed over the checked states;
+* ``order_violations``: vertices that break the k-order certificate
+  under the reference's cores and the program's labels, plus repeated
+  (core, label) pairs (``order_violations``), summed over the states;
+* ``edge_diff``: the final slot table's live edges against the implied
+  edge set (``edge_diff``);
+* ``count_mismatch``: batches whose ``n_inserted`` or ``n_removed``
+  differs from the edges sent (every inserted edge is absent and every
+  removed one live in the traffic).
 """
 from __future__ import annotations
 
@@ -112,3 +127,31 @@ def edge_keys(edges, n: int, device) -> torch.Tensor:
     lo = torch.minimum(e[:, 0], e[:, 1])
     hi = torch.maximum(e[:, 0], e[:, 1])
     return torch.sort(lo * n + hi).values
+
+
+def check(n: int, expected: list, live: tuple, want: tuple,
+          rows: list) -> dict:
+    """The four numbers (see the module's docstring). ``expected``: for
+    each distinct implied edge set ``(keys, weights, states)``, with
+    ``states`` the program's ``(core, label)`` at each checked state that
+    should hold it; ``live``: the program's final ``(keys, weights)``;
+    ``want``: the implied final ``(keys, weights)``; ``rows``: every
+    batch's ``sent_insert``, ``sent_remove``, ``n_inserted``,
+    ``n_removed``."""
+    if want[1] is not None or any(w is not None for _, w, _ in expected):
+        raise ValueError("the k-core reference judges unweighted graphs; "
+                         "a weighted configuration names its own")
+    core_bad = order_bad = 0
+    for keys, _, states in expected:
+        ref = core_numbers(keys, n)
+        for core, label in states:
+            core = torch.as_tensor(core, device=keys.device).long()
+            label = torch.as_tensor(label, device=keys.device).long()
+            core_bad += int((core != ref).sum())
+            order_bad += order_violations(keys, n, ref, label)
+        del ref
+    count_bad = sum(int(r["n_inserted"]) != r["sent_insert"]
+                    or int(r["n_removed"]) != r["sent_remove"] for r in rows)
+    return {"core_mismatch": core_bad, "order_violations": order_bad,
+            "edge_diff": edge_diff(live[0], want[0]),
+            "count_mismatch": count_bad}

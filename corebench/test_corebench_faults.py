@@ -1,13 +1,15 @@
 """The check that decides ``correct`` must fail what it is there to catch:
 the control (the reference with its removal fixpoint cut to one round) and
 the timed path broken underneath the harness, once for each fault a
-one-card cell can have (no exchange between cards exists to leave out).
+one-card cell can have (no exchange between cards exists to leave out),
+a mixed batch's insertion and a weighted cell's weights among them.
 And, on a card only, one short run of a tiny cell through the kernels."""
 import pytest
 import torch
 
 from corebench import harness, tiny
 from corebench.control import Control
+from corebench.test_corebench_harness import add_weighted_cell
 
 
 @pytest.fixture
@@ -15,7 +17,8 @@ def tiny_root(tmp_path):
     return tiny.make_root(tmp_path)
 
 
-@pytest.mark.parametrize("cell", ["tiny-rmat.burst", "tiny-er.burst"])
+@pytest.mark.parametrize("cell", ["tiny-rmat.burst", "tiny-er.burst",
+                                  "tiny-er.sliding"])
 def test_the_control_comes_out_not_correct(tiny_root, cell):
     res = harness.run_cell(cell, 21, 1e9, False, device="cpu",
                            root=tiny_root, system=Control, max_batches=4)
@@ -48,17 +51,44 @@ def _altered(orig):
     return apply_batch
 
 
-@pytest.mark.parametrize("fault, caught_by", [
-    (_unchanged, "count_mismatch"),
-    (_half, "count_mismatch"),
-    (_altered, "core_mismatch"),
-], ids=["state_unchanged", "half_the_batch", "answer_altered"])
+def _insertion_skipped(orig):
+    """A mixed batch's last insertion left out."""
+    def apply_batch(self, insert_edges=None, remove_edges=None,
+                    insert_weights=None):
+        if len(insert_edges) and len(remove_edges):
+            insert_edges = insert_edges[:-1]
+            if insert_weights is not None:
+                insert_weights = insert_weights[:-1]
+        return orig(self, insert_edges=insert_edges,
+                    remove_edges=remove_edges, insert_weights=insert_weights)
+    return apply_batch
+
+
+def _weights_dropped(orig):
+    """The inserted edges' weights left out (each stored as 1)."""
+    def apply_batch(self, insert_edges=None, remove_edges=None,
+                    insert_weights=None):
+        return orig(self, insert_edges=insert_edges,
+                    remove_edges=remove_edges)
+    return apply_batch
+
+
+@pytest.mark.parametrize("fault, caught_by, cell", [
+    (_unchanged, "count_mismatch", "tiny-rmat.burst"),
+    (_half, "count_mismatch", "tiny-rmat.burst"),
+    (_altered, "core_mismatch", "tiny-rmat.burst"),
+    (_insertion_skipped, "count_mismatch", "tiny-er.sliding"),
+    (_weights_dropped, "edge_diff", "tiny-w.slide"),
+], ids=["state_unchanged", "half_the_batch", "answer_altered",
+        "insertion_skipped", "weights_dropped"])
 def test_a_broken_timed_path_comes_out_not_correct(tiny_root, monkeypatch,
-                                                   fault, caught_by):
+                                                   fault, caught_by, cell):
     from repro_torch.core.api import CoreMaintainer
+    if cell == "tiny-w.slide":
+        add_weighted_cell(tiny_root)
     monkeypatch.setattr(CoreMaintainer, "apply_batch",
                         fault(CoreMaintainer.apply_batch))
-    res = harness.run_cell("tiny-rmat.burst", 8, 1e9, False, device="cpu",
+    res = harness.run_cell(cell, 8, 1e9, False, device="cpu",
                            root=tiny_root, max_batches=4)
     assert res["correct"] is False
     assert res["checks"][caught_by]["value"] > 0

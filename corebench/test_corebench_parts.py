@@ -2,6 +2,7 @@
 traffic, the plain reference against brute force, the roofline's byte
 counts and the import guard."""
 import ast
+import hashlib
 import itertools
 from pathlib import Path
 
@@ -9,10 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from corebench import graphs, mixes, reference, roofline
+from corebench import graphs, mixes, roofline, tiny
+from corebench.references import kcore as reference
 from corebench.guard import forbidden_modules
 
 HERE = Path(__file__).resolve().parent
+
+
+def _generate(cfg, seed):
+    g = graphs.generate(cfg, seed, "cpu")
+    return g.n, g.keys, g.perm
 
 
 def _check_keys(n, keys):
@@ -23,15 +30,15 @@ def _check_keys(n, keys):
 
 @pytest.mark.parametrize("seed", [0, 7, 2**31 + 5, 12345678901234])
 def test_gnm_has_exactly_m_distinct_edges(seed):
-    n, keys, _ = graphs.generate({"generator": "gnm", "n": 500,
-                                  "m": 4000, "graph_seed": seed}, 1, "cpu")
+    n, keys, _ = _generate({"generator": "gnm", "n": 500,
+                            "m": 4000, "graph_seed": seed}, 1)
     assert n == 500 and keys.numel() == 4000
     _check_keys(n, keys)
 
 
 def test_gnm_dense_corner_and_refusal():
-    n, keys, _ = graphs.generate({"generator": "gnm", "n": 12, "m": 66,
-                                  "graph_seed": 3}, 3, "cpu")
+    n, keys, _ = _generate({"generator": "gnm", "n": 12, "m": 66,
+                            "graph_seed": 3}, 3)
     assert keys.numel() == 66  # every pair
     with pytest.raises(ValueError):
         graphs.generate({"generator": "gnm", "n": 12, "m": 67,
@@ -41,9 +48,9 @@ def test_gnm_dense_corner_and_refusal():
 def test_kronecker_counts_and_seeds():
     cfg = {"generator": "kronecker", "scale": 9, "edgefactor": 16,
            "initiator": [0.57, 0.19, 0.19]}
-    n, a, perm = graphs.generate(dict(cfg, graph_seed=11), 1, "cpu")
-    _, b, _ = graphs.generate(dict(cfg, graph_seed=11), 2, "cpu")
-    _, c, _ = graphs.generate(dict(cfg, graph_seed=12), 1, "cpu")
+    n, a, perm = _generate(dict(cfg, graph_seed=11), 1)
+    _, b, _ = _generate(dict(cfg, graph_seed=11), 2)
+    _, c, _ = _generate(dict(cfg, graph_seed=12), 1)
     assert torch.equal(torch.sort(perm).values, torch.arange(n))
     assert n == 512
     _check_keys(n, a)
@@ -57,8 +64,8 @@ def test_kronecker_counts_and_seeds():
 
 
 def test_csr_arrays_round_trip():
-    n, keys, _ = graphs.generate({"generator": "gnm", "n": 60, "m": 200,
-                                  "graph_seed": 1}, 1, "cpu")
+    n, keys, _ = _generate({"generator": "gnm", "n": 60, "m": 200,
+                            "graph_seed": 1}, 1)
     indptr, indices = graphs.csr_arrays(keys, n)
     src = np.repeat(np.arange(n), np.diff(indptr))
     assert indices.dtype == np.int32 and indptr[-1] == 400
@@ -70,11 +77,12 @@ def test_csr_arrays_round_trip():
 
 
 def test_burst_pairs_restore_the_edge_set():
-    n, keys, perm = graphs.generate({"generator": "gnm", "n": 200,
-                                     "m": 1000, "graph_seed": 5}, 5, "cpu")
+    g = graphs.generate({"generator": "gnm", "n": 200, "m": 1000,
+                         "graph_seed": 5}, 5, "cpu")
+    n = g.n
     t = mixes.make({"kind": "burst", "batch_edges": 50, "distinct_pairs": 3,
-                    "trace_pairs": 1}, keys, n, 5, 5, perm)
-    live = set(graphs.relabel(keys, perm, n).tolist())
+                    "trace_pairs": 1}, g, 5, 5)
+    live = set(g.relabelled[0].tolist())
     start = set(live)
     used = []
     for i in range(2 * 5):  # past distinct_pairs: the chunks cycle
@@ -115,21 +123,103 @@ def test_a_graph_seed_fixes_the_graph_and_its_bursts(generator):
            "trace_pairs": 1}
     runs = []
     for seed in (1, 2):
-        n, keys, perm = graphs.generate(cfg, seed, "cpu")
-        t = mixes.make(mix, keys, n, cfg["graph_seed"], seed, perm)
+        g = graphs.generate(cfg, seed, "cpu")
+        n, keys, perm = g.n, g.keys, g.perm
+        t = mixes.make(mix, g, cfg["graph_seed"], seed)
         inv = torch.argsort(perm)  # back to the structure's own ids
         back = [sorted(reference.edge_keys(inv[torch.as_tensor(c)], n,
                                            "cpu").tolist()) for c in t.chunks]
-        runs.append((keys, graphs.relabel(keys, perm, n), back))
+        runs.append((keys, g.relabelled[0], back))
     (k1, g1, c1), (k2, g2, c2) = runs
     assert torch.equal(k1, k2) and not torch.equal(g1, g2)
     assert sorted(c1) == sorted(c2) and c1 != c2
     # the relabelled bursts are live edges of the relabelled graph
-    _, _, perm = graphs.generate(cfg, 1, "cpu")
-    t = mixes.make(mix, k1, n, cfg["graph_seed"], 1, perm)
+    t = mixes.make(mix, graphs.generate(cfg, 1, "cpu"), cfg["graph_seed"], 1)
     for c in t.chunks:
         assert set(reference.edge_keys(c, n, "cpu").tolist()) <= \
             set(g1.tolist())
+
+
+def _sha(arrays):
+    d = hashlib.sha256()
+    for a in arrays:
+        a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+        d.update(np.ascontiguousarray(a.astype(np.int64)).tobytes())
+    return d.hexdigest()
+
+
+# the parent's generators and burst mix at tiny.py's sizes, before they
+# moved into generators/ and kinds/ (seed 2**31 + 17): keys, vertex ids,
+# and every batch of one cycle (insert, remove)
+DIGESTS = {
+    "tiny-rmat": (
+        "6815bd3a41708dff18c36e865065ab78c569f992d78a7a3d3166dbfc1a0e5d0d",
+        "fab99e3c62a16dcf25f4b106c264a6ae928b1f01f094c1ce31e43f836b484c38",
+        "dc49f10e8c1d69834202c20fbec36d5af3452a895dc591c02d6366ecb4e25ebc"),
+    "tiny-er": (
+        "4d73aaa3ea71eee5c4157c4647ee2227c918b1cc7c216f70c54a66bc9daf00a2",
+        "13711138c81803971ce272f620186bf5fd5f223b25b8376e2bd5153e483d8091",
+        "0298fd2255e8569f5d2693476931f383b78e7931a3c019c0f966cc2aa1619d9b"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS))
+def test_moved_generators_and_burst_send_the_parents_bits(name):
+    cfg = tiny.CONFIGS[name]
+    g = graphs.generate(cfg, 2**31 + 17, "cpu")
+    t = mixes.make(tiny.MIX, g, cfg["graph_seed"], 2**31 + 17)
+    batches = [t.batch(i) for i in range(2 * t.distinct)]
+    assert (_sha([g.keys]), _sha([g.perm]), _sha(
+        [x for b in batches for x in (b.insert, b.remove)])) == DIGESTS[name]
+
+
+SLIDE = {"kind": "sliding", "step_edges": 30, "new_edges": 120,
+         "warmup_batches": 3, "trace_batches": 4}
+
+
+@pytest.mark.parametrize("cfg", [
+    {"generator": "kronecker", "scale": 7, "edgefactor": 8,
+     "initiator": [0.57, 0.19, 0.19], "graph_seed": 3},
+    {"generator": "gnm", "n": 200, "m": 900, "graph_seed": 5}],
+    ids=["kronecker", "gnm"])
+def test_sliding_replays_a_window_over_a_distinct_ring(cfg):
+    """The ring is distinct: the graph's edges, then new edges of the
+    generator's law absent from it; every removal is live and every
+    insertion absent; ``live(i)`` is the replay's edge set, through more
+    than one turn of the ring (the wrap); each seed sends the same batches
+    in its own vertex ids."""
+    g = graphs.generate(cfg, 9, "cpu")
+    n, m = g.n, g.keys.numel()
+    t = mixes.make(SLIDE, g, cfg["graph_seed"], 9)
+    ring = reference.edge_keys(t.edges, n, "cpu")
+    assert ring.numel() == m + 120 == torch.unique(ring).numel()
+    start = set(g.relabelled[0].tolist())
+    first = set(reference.edge_keys(t.edges[:m], n, "cpu").tolist())
+    assert first == start and not set(ring.tolist()) - first & start
+    live = set(start)
+    assert set(t.live(-1, "cpu")[0].tolist()) == live
+    turn = (m + 120) // 30 + 1
+    for i in range(2 * turn + 3):
+        b = t.batch(i)
+        gone = reference.edge_keys(b.remove, n, "cpu").tolist()
+        new = reference.edge_keys(b.insert, n, "cpu").tolist()
+        assert b.kind == "mixed" and len(set(gone)) == len(set(new)) == 30
+        assert set(gone) <= live and not set(new) & live
+        live = (live - set(gone)) | set(new)
+        keys, weights = t.live(i, "cpu")
+        assert weights is None and keys.tolist() == sorted(live)
+    # an edge re-enters new_edges / step_edges steps after it left
+    gone0 = set(reference.edge_keys(t.batch(0).remove, n, "cpu").tolist())
+    back = set(reference.edge_keys(t.batch(4).insert, n, "cpu").tolist())
+    assert gone0 == back
+    assert [(b.kind, b.insert.tolist()) for b in t.warmup()] == \
+        [(t.batch(i).kind, t.batch(i).insert.tolist()) for i in range(3)]
+    # another seed: the same ring in other vertex ids
+    h = graphs.generate(cfg, 10, "cpu")
+    u = mixes.make(SLIDE, h, cfg["graph_seed"], 10)
+    inv_g, inv_h = torch.argsort(g.perm), torch.argsort(h.perm)
+    assert torch.equal(inv_g[torch.as_tensor(t.edges)],
+                       inv_h[torch.as_tensor(u.edges)])
 
 
 def _brute_cores(n, edges):
@@ -229,16 +319,30 @@ def _imports(path):
             yield node.module
 
 
+# the default reference keeps the test id of its name before it moved
+MOVED = {"references/kcore.py": "reference.py"}
+
+
 @pytest.mark.parametrize("path", sorted(HERE.rglob("*.py")),
-                         ids=lambda p: p.name)
+                         ids=lambda p: MOVED.get(f"{p.parent.name}/{p.name}",
+                                                 p.name))
 def test_no_file_imports_jax_or_the_jax_package(path):
     assert not forbidden_modules(_imports(path))
 
 
-@pytest.mark.parametrize("name", ["reference", "graphs", "mixes",
-                                  "roofline", "control"])
+# the yardstick's files: the default reference under its old name, and
+# every generator, traffic kind and reference found by name
+YARDSTICK = {"reference": "references/kcore.py", "graphs": "graphs.py",
+             "mixes": "mixes.py", "roofline": "roofline.py",
+             "control": "control.py", "parts": "parts.py"}
+YARDSTICK.update({f"{p.parent.name}/{p.stem}": f"{p.parent.name}/{p.name}"
+                  for part in ("generators", "kinds", "references")
+                  for p in sorted((HERE / part).glob("*.py"))})
+
+
+@pytest.mark.parametrize("name", sorted(YARDSTICK))
 def test_the_yardstick_imports_nothing_of_the_port(name):
-    tops = {m.split(".")[0] for m in _imports(HERE / f"{name}.py")}
+    tops = {m.split(".")[0] for m in _imports(HERE / YARDSTICK[name])}
     assert "repro_torch" not in tops and "repro" not in tops
 
 
